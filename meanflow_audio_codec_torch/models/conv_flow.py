@@ -32,12 +32,15 @@ class ConvStage(nn.Module):
     ``spatial`` is the grid side (default isqrt(noise_dimension));
     ``lift_channels`` c0 factorises the lift into a thin [S, S, c0] Dense
     output and a 1x1 conv c0 -> C (default: Dense straight to C channels).
+    ``fused_stage`` runs the LN + FiLM and the block's normalisation segments
+    through the fused stage ops (``ops/stage.py``).
     """
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
                  num_blocks: int, use_grn: bool = True,
                  bottleneck_dim: int = 128, channels: int | None = None,
                  spatial: int | None = None, lift_channels: int | None = None,
+                 fused_stage: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_blocks = num_blocks
@@ -54,8 +57,11 @@ class ConvStage(nn.Module):
         # 1x1 convs on the channels-last grid are Dense layers
         self.lift_conv = (Dense(lift_channels, channels, **dt)
                           if lift_channels is not None else None)
-        self.film = FiLM(condition_dimension, channels, **dt)
-        self.block = ConvNeXtBlock(channels, use_grn=use_grn, **dt)
+        self.fused_stage = fused_stage
+        self.film = FiLM(condition_dimension, channels, fuse_norm=fused_stage,
+                         **dt)
+        self.block = ConvNeXtBlock(channels, use_grn=use_grn,
+                                   fused_stage=fused_stage, **dt)
         self.unlift_conv = (Dense(channels, lift_channels, **dt)
                             if lift_channels is not None else None)
         self.bottleneck_out = Dense(
@@ -68,7 +74,9 @@ class ConvStage(nn.Module):
                                  self.grid_channels)
         if self.lift_conv is not None:
             h = self.lift_conv(h)
-        h = self.film(adaln_norm(h), condition)
+        if not self.fused_stage:
+            h = adaln_norm(h)
+        h = self.film(h, condition)  # the fused FiLM normalises itself
         h = self.block(h)
         if self.unlift_conv is not None:
             h = self.unlift_conv(h)
@@ -116,12 +124,15 @@ class ConditionalConvFlow(nn.Module):
 
     ``forward(x, time, latents)`` with ``time`` the ``[B, 2]`` (t, h) pair;
     ``latents=None`` equals zero latents (``latent_proj`` has no bias).
+    ``fused_stage`` goes to every decoder stage; the encoder has no fused
+    path.
     """
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
                  num_blocks: int, latent_dimension: int, use_grn: bool = True,
                  channels: int | None = None, bottleneck_dim: int = 128,
                  spatial: int | None = None, lift_channels: int | None = None,
+                 fused_stage: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.noise_dimension = noise_dimension
@@ -131,7 +142,8 @@ class ConditionalConvFlow(nn.Module):
             ConvStage(noise_dimension, condition_dimension, num_blocks,
                       use_grn=use_grn, bottleneck_dim=bottleneck_dim,
                       channels=channels, spatial=spatial,
-                      lift_channels=lift_channels, compute_dtype=compute_dtype)
+                      lift_channels=lift_channels, fused_stage=fused_stage,
+                      compute_dtype=compute_dtype)
             for _ in range(num_blocks)
         ])
         self.latent_proj = Dense(latent_dimension, condition_dimension,

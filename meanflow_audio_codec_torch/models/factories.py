@@ -1,5 +1,6 @@
 """Model factory; counterpart of ``meanflow_audio_codec_tpu/models/factories.py``
-for the ``convnet`` family (the only one the port has so far)."""
+for the ``convnet`` family (the only one the port has so far), with its
+``fused_stage`` option."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ PRECISION_DTYPES = {
 #: options that only set the memory policy of the training backward pass
 _TRAINING_ONLY_OPTIONS = ("remat", "remat_policy")
 #: options whose code paths the port does not have yet
-_UNPORTED_OPTIONS = ("fused_stage", "quantized")
+_UNPORTED_OPTIONS = ("quantized",)
 
 
 def compute_dtype_for(config: CodecConfig) -> torch.dtype:

@@ -1,7 +1,7 @@
 """Token scaling and per-frame gain; counterpart of ``resolve_flatten_mode``,
 ``TokenAdapter`` and ``adapter_from_config`` in
 ``meanflow_audio_codec_tpu/training/trainer.py``, for the per-frame
-('frames') layout the codec uses."""
+('frames') layout the codec and its train step use."""
 
 from __future__ import annotations
 
@@ -40,6 +40,11 @@ class TokenAdapter:
         """Per-frame RMS gain ``[B, nf, 1]`` of ``[B, nf, D]`` scaled tokens."""
         ms = (tokens * tokens).mean(dim=-1, keepdim=True)
         return torch.sqrt(ms + self.gain_norm * self.gain_norm)
+
+    def tokenize(self, x: torch.Tensor) -> torch.Tensor:
+        """Flat, scaled, gain-normalised tokens ``[B*nf, D]`` (the train
+        step's input)."""
+        return self.tokenize_with_gain(x)[0]
 
     def tokenize_with_gain(self, x: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -52,7 +52,7 @@ def test_no_file_of_the_port_imports_jax(path):
 
 
 @pytest.mark.parametrize("name", ["ops/mdct_cuda.py", "ops/imdct_cuda.py",
-                                  "ops/_build.py"])
+                                  "ops/stage_cuda.py", "ops/_build.py"])
 def test_kernel_paths_have_no_fallback_try(name):
     tree = ast.parse((PORT / name).read_text())
     assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))

@@ -282,7 +282,16 @@ def test_factory_rejects_unported_families_and_options():
     with pytest.raises(NotImplementedError):
         create_flow_model(config_from_dict({"model": dict(
             base, architecture="convnet",
-            architecture_options={"fused_stage": True})}))
+            architecture_options={"quantized": True})}))
+    # fused_stage is ported: it builds, with the plain model's parameters
+    fused = create_flow_model(config_from_dict({"model": dict(
+        base, architecture="convnet",
+        architecture_options=dict(SMALL, fused_stage=True))}))
+    plain = create_flow_model(config_from_dict({"model": dict(
+        base, architecture="convnet", architecture_options=SMALL)}))
+    assert fused.stages[0].fused_stage and not plain.stages[0].fused_stage
+    assert ({k: v.shape for k, v in fused.state_dict().items()}
+            == {k: v.shape for k, v in plain.state_dict().items()})
 
 
 def test_seeded_init_is_reproducible():
