@@ -8,15 +8,21 @@ and prints no result line):
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc,
-     all sources at once) and print the build seconds and ptxas report;
+     all sources at once) and print the build seconds, the ptxas report and
+     the instruction mix of the IMDCT's and single-read GELU+GRN's main
+     loops (cuobjdump);
   3. hold each kernel against its plain PyTorch version (TF32 off): the
      MDCT/IMDCT at the codec shape (8 rows x 32768 samples, W=512, hop 256)
-     and a ragged shape (3 rows, W=576, hop 100), rtol 1e-4 / atol 1e-3; the
+     and a ragged shape (3 rows, W=576, hop 100), and the IMDCT also at the
+     10 s clip shape (2 rows x 1721 frames), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels) and ragged shapes, in bf16 and f32, with the stage
-     ops' forward-AD tangents and gradients against plain-op autograd; and
-     time each kernel, its plain version and one library call (where one
-     exists) with CUDA events;
+     ops' forward-AD tangents and gradients against plain-op autograd, and
+     both GELU+GRN kernels (single read at those shapes, two pass at a
+     longer P); and time each kernel, its plain version and one library
+     call (where one exists) with CUDA events, the IMDCT at the 10 s shape
+     too and the two-pass GELU+GRN at the train shape beside the single
+     read;
   4. the served path: ``AudioCodec.roundtrip`` at the full width of
      configs/frontier_v2.json (bf16 compute, seeded random weights) on four
      32768-sample stereo clips and one 10 s 44.1 kHz stereo clip;
@@ -25,8 +31,8 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path is driven with the kernels' launch counts set to 0 just
-     before it and read just after;
+     each path is driven with the kernels' launch counts (and the count of
+     each GELU+GRN kernel) set to 0 just before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
      against the same step with it off; the round trip and one small-batch
      fused train step on the card against the same on the CPU;
@@ -40,9 +46,11 @@ Needs one CUDA card; exits with code 2 when there is none.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -135,27 +143,38 @@ def card_line() -> str:
 def zero_launches() -> None:
     mdct_cuda_mod.launches = 0
     imdct_cuda_mod.launches = 0
-    for name in stage_cuda.launches:
-        stage_cuda.launches[name] = 0
+    for counts in (stage_cuda.launches, stage_cuda.gelu_grn_variants):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_launches() -> dict:
     return {"mdct_cuda": mdct_cuda_mod.launches,
-            "imdct_cuda": imdct_cuda_mod.launches, **stage_cuda.launches}
+            "imdct_cuda": imdct_cuda_mod.launches, **stage_cuda.launches,
+            "gelu_grn_variants": dict(stage_cuda.gelu_grn_variants)}
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call of ``fn``, by CUDA events."""
-    for _ in range(warmup):
-        fn()
+def time_ms(fn, batches: int = 5, batch_ms: float = 5.0) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events: the median over
+    ``batches`` batches of calls, each spanning about ``batch_ms``, after a
+    warm-up of at least 20 ms of calls (the clocks leave idle)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+    def run(calls: int) -> float:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    calls, spent = 1, run(1)
+    while spent < 20.0:
+        calls *= 2
+        spent = run(calls)
+    calls = max(1, math.ceil(batch_ms * calls / spent))
+    return statistics.median(run(calls) / calls for _ in range(batches))
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -163,6 +182,43 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+#: kernels whose main loop ``sass_profile`` reads: (library, mangled-name part)
+SASS_KERNELS = {"imdct_cuda": ("imdct", "imdct_kernelILi4E"),
+                "gelu_grn_cuda single_read": (
+                    "stage", "gelu_grn_single_read_kernelI13__nv_bfloat16Li8E")}
+
+
+def sass_profile() -> None:
+    """The instruction mix of the redesigned kernels' main loops (the largest
+    loop of each, from ``cuobjdump -sass`` of the built libraries): the FMA
+    share of the issue slots is what bounds a kernel that waits on neither
+    memory nor barriers."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print("SASS profile: cuobjdump not found (not measured)", flush=True)
+        return
+    for label, (lib, part) in SASS_KERNELS.items():
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(lib))],
+            check=True, capture_output=True, text=True, timeout=120).stdout
+        body = next(f for f in re.split(r"\n\s*Function : ", sass)
+                    if part in f.split("\n")[0])
+        ops = [(int(a, 16), op.split()[-1].split(".")[0], rest)
+               for a, op, rest in re.findall(
+                   r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?[A-Z][A-Z0-9_.]*)"
+                   r"([^;]*);", body)]
+        loops = [(int(m.group(1), 16), at) for at, op, rest in ops
+                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(m.group(1), 16) < at]
+        lo, hi = max(loops, key=lambda span: span[1] - span[0])
+        mix = collections.Counter(op for at, op, _ in ops if lo <= at <= hi)
+        total = sum(mix.values())
+        print(f"SASS profile {label}: main loop {total} instructions, FFMA "
+              f"{mix['FFMA']} ({100 * mix['FFMA'] / total:.1f}%), FMUL "
+              f"{mix['FMUL']}, FADD {mix['FADD']}, MUFU {mix['MUFU']}, LDS "
+              f"{mix['LDS']}; others {mix.most_common(12)}", flush=True)
 
 
 def mdct_library(x2d: torch.Tensor, cfg: MDCTConfig, nf: int) -> torch.Tensor:
@@ -192,12 +248,14 @@ def _errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 
 def check_kernels(device: torch.device) -> dict:
-    """Each kernel against its plain version at the codec and ragged shapes;
-    times at the codec shape."""
+    """Each kernel against its plain version at the codec and ragged shapes,
+    the IMDCT also at the 10 s clip's; times at the codec shape (keys
+    ``ms``, ...) and the IMDCT's at the 10 s shape (``ms_10s``, ...)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
-    for label, rows, length, w, hop in [("codec", 8, 32768, 512, 256),
-                                        ("ragged", 3, 5000, 576, 100)]:
+    for label, rows, length, w, hop in [
+            ("codec", 8, 32768, 512, 256), ("ragged", 3, 5000, 576, 100),
+            ("10s", 2, 10 * SAMPLE_RATE, 512, 256)]:
         cfg = MDCTConfig(w, hop)
         nf = num_frames_for_length(length, w, hop)
         out_len = output_length(nf, w, hop)
@@ -213,6 +271,8 @@ def check_kernels(device: torch.device) -> dict:
                            2.0 * rows * nf * w * 2 * w,
                            4.0 * (rows * nf * w + 2 * w * w + rows * out_len)),
         }
+        if label == "10s":  # the decoder's IMDCT of one stereo 10 s clip
+            del cases["mdct_cuda"]
         for name, (kernel, plain, library, flops, nbytes) in cases.items():
             got, ref, lib = kernel(), plain(), library()
             torch.cuda.synchronize()
@@ -224,16 +284,19 @@ def check_kernels(device: torch.device) -> dict:
             torch.testing.assert_close(lib, ref, rtol=RTOL, atol=ATOL)
             res = results[name]
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-            if label != "codec":
+            if label == "ragged":
                 continue
-            res["ms"] = time_ms(kernel)
-            res["plain_ms"] = time_ms(plain)
-            res["library_ms"] = time_ms(library)
-            res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-            print(f"{name} codec shape: kernel {res['ms']:.4f} ms, plain "
-                  f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} "
-                  f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})",
-                  flush=True)
+            suffix = "" if label == "codec" else f"_{label}"
+            res["ms" + suffix] = time_ms(kernel)
+            res["plain_ms" + suffix] = time_ms(plain)
+            res["library_ms" + suffix] = time_ms(library)
+            (res["bound_ms" + suffix],
+             res["bound_by" + suffix]) = bound(flops, nbytes)
+            print(f"{name} {label} shape: kernel {res['ms' + suffix]:.4f} ms, "
+                  f"plain {res['plain_ms' + suffix]:.4f} ms, library "
+                  f"{res['library_ms' + suffix]:.4f} ms, bound "
+                  f"{res['bound_ms' + suffix]:.4f} ms "
+                  f"({res['bound_by' + suffix]})", flush=True)
 
     # the tokenizer's round trip through both kernels: W/hop = 2x the input
     tok = MDCTTokenization(512)
@@ -421,38 +484,73 @@ def _time_op_phases(op, args) -> tuple[float, float, float]:
                                                 grad_y)))
 
 
+def gelu_grn_two_pass(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two-pass GELU+GRN kernel at any shape, past the wrapper's choice
+    by shape: to hold it against the plain version and time it beside the
+    single-read kernel at the train shape. Counts no launch."""
+    n, p, c = x.shape
+    y = torch.empty_like(x)
+    gx = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    err = stage_cuda._kernels().gelu_grn_two_pass_forward(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        gx.data_ptr(), n, p, c, stage_cuda._DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"two-pass gelu_grn launch failed: {err}")
+    return y, gx
+
+
 def check_stage_kernels(device: torch.device) -> dict:
     """Kernels 3-5 against their plain versions at the train shape (LN at
-    C = 256, GELU+GRN at 2C = 512) and two ragged shapes, in bf16 and f32;
-    the public ops' tangents and gradients in f32 at the train shape; times
-    of the bf16 train shape, the dtype of the train path."""
+    C = 256, GELU+GRN at 2C = 512), two ragged shapes and a long-P shape
+    (GELU+GRN takes its two-pass kernel there), in bf16 and f32, and the
+    two-pass GELU+GRN kernel at the train shape too; the public ops'
+    tangents and gradients in f32 at the train shape; times of the bf16
+    train shape, the dtype of the train path."""
     gen = torch.Generator(device=device).manual_seed(4)
     results = {name: {"max_abs_err": 0.0} for name in stage_cuda.launches}
     n_train = TRAIN_CLIPS * num_frames_for_length(CLIP_LEN, 512, 256)
+    variants_checked = set()
     for label, (n, p, c) in [("train", (n_train, 64, 256)),
-                             ("ragged", (3, 9, 40)), ("ragged", (3, 9, 41))]:
+                             ("ragged", (3, 9, 40)), ("ragged", (3, 9, 41)),
+                             ("long P", (4, 256, 256))]:
         for dtype in (torch.bfloat16, torch.float32):
             x, s, b = _stage_inputs(n, p, c, dtype, gen, device)
             x2 = _stage_inputs(n, p, 2 * c, dtype, gen, device)[0]
             gamma = 0.5 * torch.randn(2 * c, generator=gen, device=device)
             beta = 0.1 * torch.randn(2 * c, generator=gen, device=device)
             tol = STAGE_F32 if dtype == torch.float32 else STAGE_BF16
-            for name, (kernel, plain, library, op, args) in _stage_cases(
-                    x, s, b, x2, gamma, beta).items():
+            cases = _stage_cases(x, s, b, x2, gamma, beta)
+            variant = stage_cuda.gelu_grn_variant(x2)
+            variants_checked.add(variant)
+            if label == "train":  # the two-pass kernel where it is not chosen
+                cases["gelu_grn_cuda two_pass"] = (
+                    lambda: gelu_grn_two_pass(x2, gamma, beta),
+                    *cases["gelu_grn_cuda"][1:])
+                variants_checked.add("two_pass")
+            for name, (kernel, plain, library, op, args) in cases.items():
                 got, ref = kernel(), plain()
                 torch.cuda.synchronize()
                 err = (got[0].float() - ref[0].float()).abs().max().item()
                 stat_err = max((g - r).abs().max().item()
                                for g, r in zip(got[1:], ref[1:]))
-                print(f"{name} {label} {tuple(args[0].shape)} {dtype}: "
+                kind = (f" ({variant})" if name == "gelu_grn_cuda" else "")
+                print(f"{name}{kind} {label} {tuple(args[0].shape)} {dtype}: "
                       f"y max_abs_err {err:.3e}, stats {stat_err:.3e} "
                       f"(y {tol}, stats {STAGE_F32})", flush=True)
                 torch.testing.assert_close(got[0], ref[0], **tol)
                 for g, r in zip(got[1:], ref[1:]):
                     torch.testing.assert_close(g, r, **STAGE_F32)
-                res = results[name]
+                res = results[name.split()[0]]
                 res["max_abs_err"] = max(res["max_abs_err"], err, stat_err)
                 if label != "train":
+                    continue
+                if name == "gelu_grn_cuda two_pass":
+                    if dtype == torch.bfloat16:  # beside the single read
+                        res["two_pass_ms"] = time_ms(kernel)
+                        print(f"{name} train shape bf16: kernel "
+                              f"{res['two_pass_ms']:.4f} ms", flush=True)
                     continue
                 if dtype == torch.float32:
                     tangents = [torch.randn(a.shape, generator=gen,
@@ -481,6 +579,8 @@ def check_stage_kernels(device: torch.device) -> dict:
                       f"forward + JVP {jvp:.4f} ms, forward + backward "
                       f"{bwd:.4f} ms; a train step runs 16 forwards, 8 of "
                       f"them with the JVP, and 8 backwards per op", flush=True)
+    if variants_checked != set(stage_cuda.gelu_grn_variants):
+        raise AssertionError(f"GELU+GRN kernels checked: {variants_checked}")
     return results
 
 
@@ -557,6 +657,9 @@ def train_path(device: torch.device, card: str, fused: bool = True,
             raise AssertionError(f"{name} was not launched on the train path")
     if not fused and any(launches[name] for name in stage_kernels):
         raise AssertionError("a stage kernel ran with fused_stage off")
+    if fused and launches["gelu_grn_variants"]["single_read"] == 0:
+        raise AssertionError("the single-read GELU+GRN kernel was not "
+                             "launched on the train path")
     return launches, state, step, batch
 
 
@@ -672,9 +775,15 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for name, log in logs.items():
+        kernel = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+            entry = re.search(r"entry function '\w*?\d([a-z_]+_kernel\w*?)E[vP]",
+                              line)
+            if entry:
+                kernel = entry.group(1)
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {name} {kernel}: {line.strip()}", flush=True)
+    sass_profile()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -704,6 +813,9 @@ def main() -> int:
                 requests["4 clips x 32768"],
                 generator=torch.Generator(device).manual_seed(3)))
 
+    results["gelu_grn_cuda"]["launches_by_kernel"] = {
+        variant: sum(p["gelu_grn_variants"][variant] for p in paths.values())
+        for variant in stage_cuda.gelu_grn_variants}
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
                     launches=sum(p[name] for p in paths.values()),
                     launches_by_path={k: p[name] for k, p in paths.items()},

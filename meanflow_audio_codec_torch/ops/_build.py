@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/lib<name>-<digest>.so`` inside the package, where the digest
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Sources build in parallel, one ``nvcc`` each,
-at first use; nothing is compiled when a module is imported.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused. Sources
+build in parallel, one ``nvcc`` each, at first use; nothing is compiled when
+a module is imported.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the compiled ``name`` kernel library lives (built or not)."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``meanflow_audio_codec_tpu/ops/imdct_pallas.py``. A CPU
 tensor goes to the plain version (``ops/mdct.py``); a CUDA tensor goes to the
-kernel, or the wrapper raises. ``launches`` counts kernel launches.
+kernel, or the wrapper raises. ``launches`` counts kernel launches. The kernel
+tiles all rows' hop-sized output chunks as one GEMM (``csrc/imdct.cu``), so
+its shared memory does not depend on W, hop or the frame count.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from meanflow_audio_codec_torch.ops.mdct import (
 launches = 0
 
 _MAX_GRID_Y = 65535
-_CHUNK_TILE = 8  # hop-sample chunks per block, kChunksPerBlock in imdct.cu
-_ERR_SHARED_MEMORY = -1
+# a block's output tile: hop-sized chunks x samples (kBM, kBN in tile_core.cuh)
+_CHUNK_TILE = 32
+_SAMPLE_TILE = 64
 
 
 @functools.cache
@@ -63,7 +66,9 @@ def imdct_cuda(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     out = torch.empty((rows, out_len), dtype=torch.float32, device=X.device)
     if rows == 0 or nf == 0:
         return out.reshape(X.shape[:-2] + (out_len,))
-    if -(-out_len // (hop * _CHUNK_TILE)) > _MAX_GRID_Y or rows >= 2**31:
+    chunks = nf + -(-2 * w // hop) - 1  # hop-sized output chunks per row
+    if (rows * chunks > 2**31 - 1 - _CHUNK_TILE
+            or -(-hop // _SAMPLE_TILE) > _MAX_GRID_Y):
         raise ValueError(f"imdct_cuda: {rows} rows x {out_len} samples is "
                          "beyond the launch grid")
     forward = _kernel()
@@ -72,10 +77,6 @@ def imdct_cuda(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
         err = forward(x3d.data_ptr(), basis_t.data_ptr(), out.data_ptr(), rows,
                       nf, w, hop, imdct_scale(config),
                       torch.cuda.current_stream(X.device).cuda_stream)
-    if err == _ERR_SHARED_MEMORY:
-        raise ValueError(f"imdct_cuda: the frames reaching {_CHUNK_TILE} "
-                         f"chunks for W={w}, hop={hop} do not fit in shared "
-                         "memory")
     if err != 0:
         raise RuntimeError(f"imdct kernel launch failed with CUDA error {err}")
     launches += 1

@@ -6,7 +6,9 @@ Counterpart of the Pallas kernels ``_ln_film_pallas``, ``_ln_norm_pallas`` and
 tensor goes to the plain version (``ops/stage_ref.py``); a CUDA tensor goes to
 the kernel, or the wrapper raises. ``launches`` counts kernel launches per
 wrapper. Unlike the TPU kernels, these take any shape: nothing here tiles
-by the TPU's (8, 128) layout.
+by the TPU's (8, 128) layout. GELU+GRN has two kernels, chosen by shape
+alone (``gelu_grn_variant``); ``gelu_grn_variants`` counts each one's
+launches, and ``launches["gelu_grn_cuda"]`` counts both.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from meanflow_audio_codec_torch.ops import stage_ref
 
 #: kernel launches per wrapper since the counts were last set to 0
 launches = {"ln_film_cuda": 0, "ln_norm_cuda": 0, "gelu_grn_cuda": 0}
+#: GELU+GRN launches per kernel since the counts were last set to 0
+gelu_grn_variants = {"single_read": 0, "two_pass": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # kF32 / kBF16 in csrc/stage.cu
 _P = ctypes.c_void_p
@@ -37,7 +41,10 @@ def _kernels():
         # x, y, mu, r, rows, C, dtype, stream
         "ln_norm_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
         # x, gamma, beta, y, gx, N, P, C, dtype, stream
-        "gelu_grn_forward": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+        "gelu_grn_single_read_forward": [_P, _P, _P, _P, _P, _I64, _I32, _I32,
+                                         _I32, _P],
+        "gelu_grn_two_pass_forward": [_P, _P, _P, _P, _P, _I64, _I32, _I32,
+                                      _I32, _P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -71,11 +78,17 @@ def _check(name: str, x3: torch.Tensor, *others: tuple[str, torch.Tensor,
 
 
 _ERR_GRID = -1  # kErrGrid in csrc/stage.cu
-
+_ERR_SHAPE = -3  # kErrShape
+# the single-read GELU+GRN kernel: g values a thread holds, threads a block
+# has (kGrnHeld, kGrnSingleThreads in csrc/stage.cu)
+_GRN_HELD, _GRN_THREADS = 64, 512
 
 def _raise_on(err: int, name: str) -> None:
     if err == _ERR_GRID:
         raise ValueError(f"{name}: more rows than one launch grid holds")
+    if err == _ERR_SHAPE:
+        raise ValueError(f"{name}: the slice does not fit the single-read "
+                         "kernel")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
@@ -133,6 +146,22 @@ def ln_norm_cuda(x3: torch.Tensor
     return y, mu, r
 
 
+def gelu_grn_variant(x3: torch.Tensor) -> str:
+    """Which GELU+GRN kernel takes ``x3`` [N, P, C]: ``"single_read"`` when
+    each thread of one block can hold its share of a [P, C] slice in
+    registers (as ``single_read_plan`` in csrc/stage.cu decides), else
+    ``"two_pass"``."""
+    _, p, c = x3.shape
+    v = 16 // x3.element_size()
+    if c % v or x3.data_ptr() % 16:  # y is a fresh, aligned allocation
+        v = 1
+    vectors = c // v
+    if p < 1 or vectors > _GRN_THREADS:
+        return "two_pass"
+    groups = min(_GRN_THREADS // vectors, p)
+    return "single_read" if -(-p // groups) * v <= _GRN_HELD else "two_pass"
+
+
 def gelu_grn_cuda(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tanh-GELU + GRN: [N,P,C], [C], [C] -> (y, gx [N,C] float32).
@@ -151,10 +180,12 @@ def gelu_grn_cuda(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
     gx = torch.empty((n, c), dtype=torch.float32, device=x3.device)
     if n * c == 0:
         return y, gx
+    variant = gelu_grn_variant(x3)
     with torch.cuda.device(x3.device):
-        err = _kernels().gelu_grn_forward(
+        err = getattr(_kernels(), f"gelu_grn_{variant}_forward")(
             x3.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(),
             gx.data_ptr(), n, p, c, code, _stream(x3))
-    _raise_on(err, "gelu_grn")
+    _raise_on(err, f"gelu_grn ({variant})")
     launches["gelu_grn_cuda"] += 1
+    gelu_grn_variants[variant] += 1
     return y, gx

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA MDCT/IMDCT kernels against their plain
 versions (TF32 off) at the tests/test_mdct_pallas.py geometries, the stage
-kernels against theirs at the train shape and ragged shapes, the stage ops'
+kernels against theirs at the train shape and ragged shapes (GELU+GRN's
+single-read kernel) and a long-P shape (its two-pass kernel), the stage ops'
 tangents and gradients, and the wrappers' checks. Skips without CUDA. Runs
 on a GPU machine with
 
@@ -77,6 +78,23 @@ def test_imdct_kernel_matches_plain(device, rows, length, window, hop,
     torch.testing.assert_close(got, imdct(X, cfg), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("rows,nf,window,hop", [
+    (2, 1721, 512, 256),   # the decoder's IMDCT of a stereo 10 s clip
+    (2, 40, 126, 50),      # W and hop not multiples of 4: 4-byte copies
+    (3, 1, 64, 32),        # one frame
+])
+def test_imdct_kernel_matches_plain_at_more_shapes(device, rows, nf, window,
+                                                   hop):
+    X = torch.randn(rows, nf, window, device=device,
+                    generator=torch.Generator(device).manual_seed(nf))
+    cfg = MDCTConfig(window, hop)
+    before = imdct_cuda_mod.launches
+    got = imdct_cuda(X, cfg)
+    torch.cuda.synchronize()
+    assert imdct_cuda_mod.launches == before + 1
+    torch.testing.assert_close(got, imdct(X, cfg), rtol=RTOL, atol=ATOL)
+
+
 def test_imdct_kernel_is_bitwise_stable(device):
     X = torch.randn(4, 127, 512, device=device)
     cfg = MDCTConfig(512)
@@ -100,13 +118,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
 
 
 def test_wrappers_raise_when_a_block_does_not_fit_shared_memory(device):
-    # 31 hops + 2W of span at W = hop = 2048 and 15 frames of W = 4096 at
-    # hop 1024 both exceed the 227 KiB a Hopper block may have
+    # 31 hops + 2W of span at W = hop = 2048 exceed the 227 KiB a Hopper
+    # block may have
     with pytest.raises(ValueError, match="shared memory"):
         mdct_cuda(torch.zeros(1, 8192, device=device), MDCTConfig(2048, 2048))
-    with pytest.raises(ValueError, match="shared memory"):
-        imdct_cuda(torch.zeros(1, 2, 4096, device=device),
-                   MDCTConfig(4096, 1024))
+    # the IMDCT's tiles no longer grow with W and the frame count: W = 4096
+    # at hop 1024 (15 frames per block before) runs, and matches
+    X = torch.randn(1, 2, 4096, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    cfg = MDCTConfig(4096, 1024)
+    torch.testing.assert_close(imdct_cuda(X, cfg), imdct(X, cfg), rtol=RTOL,
+                               atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +140,7 @@ STAGE_SHAPES = [
     (3, 9, 40),       # ragged, 16-byte loads
     (3, 9, 41),       # ragged, scalar loads
     (1, 1, 1),
+    (4, 256, 256),    # long P: GRN takes its two-pass kernel
 ]
 STAGE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
              torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -165,8 +188,13 @@ def test_gelu_grn_kernel_matches_plain(device, n, p, c, dtype):
     gen = torch.Generator(device).manual_seed(1)
     gamma = 0.5 * torch.randn(c, generator=gen, device=device)
     beta = 0.1 * torch.randn(c, generator=gen, device=device)
+    variant = "two_pass" if p == 256 else "single_read"
+    assert stage_cuda.gelu_grn_variant(x) == variant
+    before = dict(stage_cuda.gelu_grn_variants)
     got = _launched("gelu_grn_cuda",
                     lambda: stage_cuda.gelu_grn_cuda(x, gamma, beta))
+    assert stage_cuda.gelu_grn_variants == {
+        k: v + (k == variant) for k, v in before.items()}
     ref = stage._gelu_grn_ref(x, gamma, beta)
     torch.testing.assert_close(got[0], ref[0], **STAGE_TOL[dtype])
     torch.testing.assert_close(got[1], ref[1], **STATS_TOL)

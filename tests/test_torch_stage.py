@@ -29,7 +29,7 @@ from meanflow_audio_codec_tpu.models import conv_flow as jconv
 from meanflow_audio_codec_tpu.ops import stage_pallas as jstage
 from meanflow_audio_codec_torch import weights
 from meanflow_audio_codec_torch.models import blocks, conv_flow
-from meanflow_audio_codec_torch.ops import stage
+from meanflow_audio_codec_torch.ops import stage, stage_cuda
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1e-2, atol=1e-2)
@@ -187,6 +187,33 @@ def test_backward_skips_inputs_without_grad():
                              torch.from_numpy(data["beta"]))
     (gx,) = torch.autograd.grad(y.sum(), [x])
     assert gx.shape == x.shape and torch.isfinite(gx).all()
+
+
+@pytest.mark.parametrize("shape,dtype,variant", [
+    ((2032, 64, 512), torch.bfloat16, "single_read"),  # the train shape
+    ((2032, 64, 512), torch.float32, "single_read"),
+    ((3, 9, 41), torch.float32, "single_read"),        # scalar loads
+    ((1, 1, 1), torch.bfloat16, "single_read"),
+    ((4, 256, 512), torch.bfloat16, "two_pass"),       # long P
+    ((4, 256, 512), torch.float32, "two_pass"),
+    ((2, 8, 8192), torch.bfloat16, "two_pass"),        # C / 8 > 512 threads
+    ((2, 0, 8), torch.float32, "two_pass"),
+], ids=str)
+def test_gelu_grn_kernel_is_chosen_by_shape(shape, dtype, variant):
+    assert stage_cuda.gelu_grn_variant(torch.empty(shape, dtype=dtype)) == \
+        variant
+
+
+def test_gelu_grn_wrapper_runs_the_plain_version_on_cpu():
+    data = _inputs((3, 9, 40), seed=6)
+    x, gamma, beta = (torch.from_numpy(data[k]) for k in ("x", "gamma",
+                                                           "beta"))
+    before = (dict(stage_cuda.launches), dict(stage_cuda.gelu_grn_variants))
+    got = stage_cuda.gelu_grn_cuda(x, gamma, beta)
+    ref = stage._gelu_grn_ref(x, gamma, beta)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (stage_cuda.launches, stage_cuda.gelu_grn_variants) == before
 
 
 # ---------------------------------------------------------------------------
