@@ -2,6 +2,7 @@
 """Drive the PyTorch port of the codec on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --transforms-only   # phases 1-3 for MDCT/IMDCT
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -9,20 +10,21 @@ and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc,
      all sources at once) and print the build seconds, the ptxas report and
-     the instruction mix of the IMDCT's and single-read GELU+GRN's main
-     loops (cuobjdump);
+     the instruction mix of the MDCT's, IMDCT's and single-read GELU+GRN's
+     main loops (cuobjdump);
   3. hold each kernel against its plain PyTorch version (TF32 off): the
-     MDCT/IMDCT at the codec shape (8 rows x 32768 samples, W=512, hop 256)
-     and a ragged shape (3 rows, W=576, hop 100), and the IMDCT also at the
-     10 s clip shape (2 rows x 1721 frames), rtol 1e-4 / atol 1e-3; the
+     MDCT/IMDCT at the codec shape (8 rows x 32768 samples, W=512, hop 256),
+     a ragged shape (3 rows, W=576, hop 100) and the 10 s clip shape (2 rows
+     x 441000 samples, 1721 frames), and the MDCT also at the train step's
+     tokenize (32 rows x 32768 samples), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels) and ragged shapes, in bf16 and f32, with the stage
      ops' forward-AD tangents and gradients against plain-op autograd, and
      both GELU+GRN kernels (single read at those shapes, two pass at a
      longer P); and time each kernel, its plain version and one library
-     call (where one exists) with CUDA events, the IMDCT at the 10 s shape
-     too and the two-pass GELU+GRN at the train shape beside the single
-     read;
+     call (where one exists) with CUDA events, the MDCT and IMDCT at the
+     10 s shape too, the MDCT at the train shape and the two-pass GELU+GRN
+     at the train shape beside the single read;
   4. the served path: ``AudioCodec.roundtrip`` at the full width of
      configs/frontier_v2.json (bf16 compute, seeded random weights) on four
      32768-sample stereo clips and one 10 s 44.1 kHz stereo clip;
@@ -41,11 +43,17 @@ and prints no result line):
   8. a ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
+With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
+(no instruction mix) and prints their line of results but no result line:
+copied into another checkout of the port, it times that checkout's kernels
+at the same shapes.
+
 Needs one CUDA card; exits with code 2 when there is none.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import json
@@ -185,7 +193,8 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 #: kernels whose main loop ``sass_profile`` reads: (library, mangled-name part)
-SASS_KERNELS = {"imdct_cuda": ("imdct", "imdct_kernelILi4E"),
+SASS_KERNELS = {"mdct_cuda": ("mdct", "mdct_kernelILi4E"),
+                "imdct_cuda": ("imdct", "imdct_kernelILi4E"),
                 "gelu_grn_cuda single_read": (
                     "stage", "gelu_grn_single_read_kernelI13__nv_bfloat16Li8E")}
 
@@ -248,14 +257,17 @@ def _errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 
 def check_kernels(device: torch.device) -> dict:
-    """Each kernel against its plain version at the codec and ragged shapes,
-    the IMDCT also at the 10 s clip's; times at the codec shape (keys
-    ``ms``, ...) and the IMDCT's at the 10 s shape (``ms_10s``, ...)."""
+    """The MDCT and IMDCT against their plain versions at the codec, ragged
+    and 10 s clip shapes, the MDCT also at the train step's tokenize; times
+    at the codec shape (keys ``ms``, ...), the 10 s shape (``ms_10s``, ...)
+    and the MDCT's at the train shape (``ms_train``, ...)."""
     gen = torch.Generator(device=device).manual_seed(0)
-    results = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    results = {name: {"max_abs_err": 0.0}
+               for name in ("mdct_cuda", "imdct_cuda")}
     for label, rows, length, w, hop in [
             ("codec", 8, 32768, 512, 256), ("ragged", 3, 5000, 576, 100),
-            ("10s", 2, 10 * SAMPLE_RATE, 512, 256)]:
+            ("10s", 2, 10 * SAMPLE_RATE, 512, 256),
+            ("train", 2 * TRAIN_CLIPS, CLIP_LEN, 512, 256)]:
         cfg = MDCTConfig(w, hop)
         nf = num_frames_for_length(length, w, hop)
         out_len = output_length(nf, w, hop)
@@ -271,8 +283,8 @@ def check_kernels(device: torch.device) -> dict:
                            2.0 * rows * nf * w * 2 * w,
                            4.0 * (rows * nf * w + 2 * w * w + rows * out_len)),
         }
-        if label == "10s":  # the decoder's IMDCT of one stereo 10 s clip
-            del cases["mdct_cuda"]
+        if label == "train":  # the train step tokenizes; it runs no IMDCT
+            del cases["imdct_cuda"]
         for name, (kernel, plain, library, flops, nbytes) in cases.items():
             got, ref, lib = kernel(), plain(), library()
             torch.cuda.synchronize()
@@ -759,6 +771,10 @@ def profile(label: str, fn) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--transforms-only", action="store_true",
+                        help="phases 1-3 for the MDCT and IMDCT alone")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -771,7 +787,8 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(("mdct", "imdct") if args.transforms_only
+                        else _build.SOURCES)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for name, log in logs.items():
@@ -783,12 +800,14 @@ def main() -> int:
                 kernel = entry.group(1)
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name} {kernel}: {line.strip()}", flush=True)
-    sass_profile()
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    if args.transforms_only:
+        print(json.dumps({"transforms": check_kernels(device)}), flush=True)
+        return 0
+    sass_profile()
 
     results = {**check_kernels(device), **check_stage_kernels(device)}
     paths = {}

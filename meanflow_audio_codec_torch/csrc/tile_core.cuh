@@ -7,7 +7,8 @@
 // for the MDCT they are signal chunks and frame f takes chunk f + j.
 //
 // A block owns a disjoint kBM x kBN output tile and walks K in stages of
-// kBK coefficients x kJB slices. Each stage holds in shared memory
+// kBK coefficients (IMDCT) or samples (MDCT) x kJB slices; "coefficients"
+// below stands for either. Each stage holds in shared memory
 //   A: the kBM + kJB - 1 sequence rows its slices reach, x kBK   (row-major,
 //      pitch kAPitch: 16-byte rows whose neighbours start 36 words apart,
 //      so the 4 row addresses a warp reads at once fall in 4 banks)

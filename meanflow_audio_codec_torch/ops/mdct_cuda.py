@@ -2,7 +2,10 @@
 
 Counterpart of ``meanflow_audio_codec_tpu/ops/mdct_pallas.py``. A CPU
 tensor goes to the plain version (``ops/mdct.py``); a CUDA tensor goes to the
-kernel, or the wrapper raises. ``launches`` counts kernel launches.
+kernel, or the wrapper raises. ``launches`` counts kernel launches. The kernel
+tiles all rows' frame slots as one GEMM on the IMDCT's tile core
+(``csrc/mdct.cu``), so its shared memory does not depend on W, hop or the
+signal length.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from meanflow_audio_codec_torch.ops.mdct import (
 launches = 0
 
 _MAX_GRID_Y = 65535
-_FRAME_TILE = 32  # frames per block, kFrameTile in csrc/mdct.cu
-_ERR_SHARED_MEMORY = -1
+# a block's output tile: frame slots x coefficients (kBM, kBN in tile_core.cuh)
+_SLOT_TILE = 32
+_COEFF_TILE = 64
 
 
 @functools.cache
@@ -61,18 +65,17 @@ def mdct_cuda(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     out = torch.empty((rows, nf, w), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out.reshape(x.shape[:-1] + (nf, w))
-    if -(-nf // _FRAME_TILE) > _MAX_GRID_Y or rows >= 2**31:
-        raise ValueError(f"mdct_cuda: {rows} rows x {nf} frames is beyond "
-                         "the launch grid")
+    slots = nf + -(-2 * w // hop) - 1  # frame slots per row, nf + kf - 1
+    if (rows * slots > 2**31 - 1 - _SLOT_TILE
+            or -(-w // _COEFF_TILE) > _MAX_GRID_Y):
+        raise ValueError(f"mdct_cuda: {rows} rows x {nf} frames of {w} is "
+                         "beyond the launch grid")
     forward = _kernel()
     with torch.cuda.device(x.device):
         basis = windowed_basis(w, x.device)
         err = forward(x2d.data_ptr(), basis.data_ptr(), out.data_ptr(), rows,
                       length, nf, w, hop,
                       torch.cuda.current_stream(x.device).cuda_stream)
-    if err == _ERR_SHARED_MEMORY:
-        raise ValueError(f"mdct_cuda: the span of {_FRAME_TILE} frames for "
-                         f"W={w}, hop={hop} does not fit in shared memory")
     if err != 0:
         raise RuntimeError(f"mdct kernel launch failed with CUDA error {err}")
     launches += 1

@@ -95,6 +95,30 @@ def test_imdct_kernel_matches_plain_at_more_shapes(device, rows, nf, window,
     torch.testing.assert_close(got, imdct(X, cfg), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("rows,length,window,hop", [
+    (2, 441000, 512, 256),  # the encoder's MDCT of a stereo 10 s clip
+    (32, 32768, 512, 256),  # the train step's tokenize of 16 stereo clips
+    (2, 5001, 126, 50),     # T, W and hop not multiples of 4: 4-byte copies
+    (2, 1001, 64, 24),      # T not a multiple of hop
+])
+def test_mdct_kernel_matches_plain_at_more_shapes(device, rows, length, window,
+                                                  hop):
+    x = torch.randn(rows, length, device=device,
+                    generator=torch.Generator(device).manual_seed(length))
+    cfg = MDCTConfig(window, hop)
+    before = mdct_cuda_mod.launches
+    got = mdct_cuda(x, cfg)
+    torch.cuda.synchronize()
+    assert mdct_cuda_mod.launches == before + 1
+    torch.testing.assert_close(got, mdct(x, cfg), rtol=RTOL, atol=ATOL)
+
+
+def test_mdct_kernel_is_bitwise_stable(device):
+    x = torch.randn(8, 32768, device=device)
+    cfg = MDCTConfig(512)
+    assert torch.equal(mdct_cuda(x, cfg), mdct_cuda(x, cfg))
+
+
 def test_imdct_kernel_is_bitwise_stable(device):
     X = torch.randn(4, 127, 512, device=device)
     cfg = MDCTConfig(512)
@@ -117,18 +141,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         mdct_cuda(torch.zeros(2, 1000, device=device), MDCTConfig(64, 80))
 
 
-def test_wrappers_raise_when_a_block_does_not_fit_shared_memory(device):
-    # 31 hops + 2W of span at W = hop = 2048 exceed the 227 KiB a Hopper
-    # block may have
-    with pytest.raises(ValueError, match="shared memory"):
-        mdct_cuda(torch.zeros(1, 8192, device=device), MDCTConfig(2048, 2048))
-    # the IMDCT's tiles no longer grow with W and the frame count: W = 4096
-    # at hop 1024 (15 frames per block before) runs, and matches
-    X = torch.randn(1, 2, 4096, device=device,
-                    generator=torch.Generator(device).manual_seed(0))
-    cfg = MDCTConfig(4096, 1024)
-    torch.testing.assert_close(imdct_cuda(X, cfg), imdct(X, cfg), rtol=RTOL,
-                               atol=ATOL)
+@pytest.mark.parametrize("transform,window,hop", [
+    # at W = hop = 2048 a span of 32 frames, 31 hops + 2W floats (264 KiB),
+    # exceeds the 227 KiB of shared memory a Hopper block may have; the
+    # tiled kernels' shared memory does not grow with W or hop
+    ("mdct", 2048, 2048),
+    ("mdct", 4096, 1024),
+    ("imdct", 4096, 1024),
+])
+def test_kernels_take_windows_past_the_shared_memory_of_one_span(
+        device, transform, window, hop):
+    gen = torch.Generator(device).manual_seed(0)
+    cfg = MDCTConfig(window, hop)
+    if transform == "mdct":
+        x = torch.randn(1, 4 * window, device=device, generator=gen)
+        torch.testing.assert_close(mdct_cuda(x, cfg), mdct(x, cfg), rtol=RTOL,
+                                   atol=ATOL)
+    else:
+        X = torch.randn(1, 2, window, device=device, generator=gen)
+        torch.testing.assert_close(imdct_cuda(X, cfg), imdct(X, cfg),
+                                   rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
