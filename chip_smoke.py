@@ -15,15 +15,16 @@ and prints no result line):
   3. hold each kernel against its plain PyTorch version (TF32 off): the
      MDCT/IMDCT at the codec shape (8 rows x 32768 samples, W=512, hop 256),
      a ragged shape (3 rows, W=576, hop 100) and the 10 s clip shape (2 rows
-     x 441000 samples, 1721 frames), and the MDCT also at the train step's
-     tokenize (32 rows x 32768 samples), rtol 1e-4 / atol 1e-3; the
+     x 441000 samples, 1721 frames), and both at the train shape (the
+     step's tokenize, 32 rows x 32768 samples, and the trainer's sampling
+     decode of its 16 clips, [32, 127, 512]), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels) and ragged shapes, in bf16 and f32, with the stage
      ops' forward-AD tangents and gradients against plain-op autograd, and
      both GELU+GRN kernels (single read at those shapes, two pass at a
      longer P); and time each kernel, its plain version and one library
      call (where one exists) with CUDA events, the MDCT and IMDCT at the
-     10 s shape too, the MDCT at the train shape and the two-pass GELU+GRN
+     10 s and train shapes too, and the two-pass GELU+GRN
      at the train shape beside the single read;
   4. the served path: ``AudioCodec.roundtrip`` at the full width of
      configs/frontier_v2.json (bf16 compute, seeded random weights) on four
@@ -33,15 +34,31 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path is driven with the kernels' launch counts (and the count of
-     each GELU+GRN kernel) set to 0 just before it and read just after;
+     each path (and the trainer's, phase 7) is driven with the kernels'
+     launch counts (and the count of each GELU+GRN kernel) set to 0 just
+     before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
      against the same step with it off; the round trip and one small-batch
      fused train step on the card against the same on the CPU;
-  7. profiles of one round trip and one bf16 train step with ``fused_stage``
+  7. (run right after phase 5, whose bare unfused step it is set beside)
+     the trainer: ``python -m meanflow_audio_codec_torch.train --config
+     configs/frontier_v2.json`` through its ``main`` at full width (bf16,
+     ``fused_stage`` off as in the config, chunks of 16 steps, the device
+     replay pool cut from 1024 clips to 64), 32 steps with a checkpoint
+     every 16 and sampling at 32, then ``--resume`` to 48 steps, in a
+     temporary workdir; checks the log (48 steps, finite, accepted,
+     resumed at 32), the retained checkpoints, the serving file against
+     the run's EMA, the WAV sample and the summary; prints the chunk time
+     per step, steps/s, frames/s, peak memory, FLOPs per step, achieved
+     TFLOP/s and MFU beside the bare unfused step's of phase 5; then times
+     and profiles the trainer's 16-step chunk alone and counts the host
+     synchronisations inside one chunk
+     (``torch.cuda.set_sync_debug_mode("warn")``, with their stacks);
+  8. profiles of one round trip and one bf16 train step with ``fused_stage``
      on and off (device time by kernel, busy share);
-  8. a ``{"kernels": [...]}`` line, then the result line
-     ``{"ok": true, "device": {...}}`` last.
+  9. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
+     trainer), then the result line ``{"ok": true, "device": {...}}``
+     last.
 
 With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
@@ -62,12 +79,16 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import wave
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from meanflow_audio_codec_torch import serialization, weights
+from meanflow_audio_codec_torch import train as train_cli
 from meanflow_audio_codec_torch.codec import AudioCodec
 from meanflow_audio_codec_torch.configs import load_config
 from meanflow_audio_codec_torch.models.factories import create_flow_model
@@ -90,13 +111,18 @@ from meanflow_audio_codec_torch.ops.tokenize import (
     MDCTTokenization,
     create_tokenization_strategy,
 )
+from meanflow_audio_codec_torch.training import profiling
 from meanflow_audio_codec_torch.training.adapter import adapter_from_config
+from meanflow_audio_codec_torch.training.logging import read_log
 from meanflow_audio_codec_torch.training.objectives import create_loss_strategy
 from meanflow_audio_codec_torch.training.optim import (
     TrainState,
     make_optimizer,
 )
-from meanflow_audio_codec_torch.training.train_step import make_train_step
+from meanflow_audio_codec_torch.training.train_step import (
+    make_multi_step,
+    make_train_step,
+)
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "frontier_v2.json"
@@ -258,9 +284,10 @@ def _errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 def check_kernels(device: torch.device) -> dict:
     """The MDCT and IMDCT against their plain versions at the codec, ragged
-    and 10 s clip shapes, the MDCT also at the train step's tokenize; times
-    at the codec shape (keys ``ms``, ...), the 10 s shape (``ms_10s``, ...)
-    and the MDCT's at the train shape (``ms_train``, ...)."""
+    and 10 s clip shapes and at the train shape (the step's tokenize, 32 rows
+    x 32768 samples, and the trainer's sampling decode, [32, 127, 512]);
+    times at the codec shape (keys ``ms``, ...), the 10 s shape
+    (``ms_10s``, ...) and the train shape (``ms_train``, ...)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {"max_abs_err": 0.0}
                for name in ("mdct_cuda", "imdct_cuda")}
@@ -283,8 +310,6 @@ def check_kernels(device: torch.device) -> dict:
                            2.0 * rows * nf * w * 2 * w,
                            4.0 * (rows * nf * w + 2 * w * w + rows * out_len)),
         }
-        if label == "train":  # the train step tokenizes; it runs no IMDCT
-            del cases["imdct_cuda"]
         for name, (kernel, plain, library, flops, nbytes) in cases.items():
             got, ref, lib = kernel(), plain(), library()
             torch.cuda.synchronize()
@@ -672,7 +697,8 @@ def train_path(device: torch.device, card: str, fused: bool = True,
     if fused and launches["gelu_grn_variants"]["single_read"] == 0:
         raise AssertionError("the single-read GELU+GRN kernel was not "
                              "launched on the train path")
-    return launches, state, step, batch
+    stats = {"step_ms": med, "peak_gb": peak_gb, "rows": rows}
+    return launches, state, step, batch, stats
 
 
 def check_fused_against_plain(device: torch.device) -> None:
@@ -738,6 +764,204 @@ def check_train_against_cpu(device: torch.device) -> None:
     torch.testing.assert_close(gg, gc, rtol=1e-4, atol=0)
     if not rel_l2 <= TRAIN_REL_L2:
         raise AssertionError(f"card vs CPU first moments: rel_l2 {rel_l2}")
+
+
+def _read_wav(path: Path) -> tuple[int, int, int]:
+    """(frames, channels, sample rate) of a WAV file."""
+    with wave.open(str(path), "rb") as wav:
+        return wav.getnframes(), wav.getnchannels(), wav.getframerate()
+
+
+def _check_trainer_workdir(workdir: Path) -> tuple[list[dict], dict]:
+    """The trainer's records after 32 steps and a resume to 48: 48 step
+    records with finite loss and grad_norm and update_ok, the resumed run
+    starting at step 32, the retained checkpoints and sidecars, a serving
+    file holding the run's EMA, the WAV sample and the summary."""
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    starts = [i for i, r in enumerate(records) if r.get("event") == "start"]
+    steps = [r for r in records if "event" not in r]
+    if len(starts) != 2 or [r["step"] for r in steps] != list(range(48)):
+        raise AssertionError(f"trainer log: start events at {starts}, steps "
+                             f"{[r['step'] for r in steps]}")
+    if records[starts[1] + 1]["step"] != 32:
+        raise AssertionError("the resumed run did not start at step 32")
+    bad = [r["step"] for r in steps
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                   and r["update_ok"] is True)]
+    if bad:
+        raise AssertionError(f"trainer steps {bad}: non-finite or rejected")
+    ckpt = workdir / "checkpoints"
+    names = sorted(p.name for p in ckpt.iterdir())
+    want = ["serving_step_00032.msgpack", "serving_step_00048.msgpack",
+            "step_00032.metadata.json", "step_00032.msgpack",
+            "step_00048.metadata.json", "step_00048.msgpack"]
+    if names != want:
+        raise AssertionError(f"checkpoints: {names}, expected {want}")
+    full = serialization.msgpack_restore(
+        (ckpt / "step_00048.msgpack").read_bytes())
+    serving = serialization.msgpack_restore(
+        (ckpt / "serving_step_00048.msgpack").read_bytes())
+    ema = weights.flax_to_torch(full["ema_params"])
+    served = weights.flax_to_torch(serving["params"])
+    if serving["step"] != 48 or set(ema) != set(served) or not all(
+            torch.equal(ema[k], served[k]) for k in ema):
+        raise AssertionError("the serving checkpoint is not the run's EMA")
+    frames, channels, rate = _read_wav(workdir / "samples" / "step_00048.wav")
+    nf = num_frames_for_length(CLIP_LEN, 512, 256)
+    if (frames, channels, rate) != ((nf - 1) * 256 + 1024, 2, SAMPLE_RATE):
+        raise AssertionError(f"sample WAV: {frames} frames x {channels} at "
+                             f"{rate} Hz")
+    summary = json.loads((workdir / "summary.json").read_text())
+    if not summary.get("steps_per_sec") or not summary.get("flops_per_step"):
+        raise AssertionError(f"summary.json: {summary}")
+    print(f"trainer workdir: 48 steps logged (resumed at 32), finite loss "
+          f"and grad_norm, update_ok on every step; {names}; serving params "
+          f"== the run's EMA ({len(ema)} tensors); step_00048.wav {frames} "
+          f"frames x {channels}", flush=True)
+    return steps, summary
+
+
+def trainer_path(device: torch.device, card: str, bare: dict):
+    """``python -m meanflow_audio_codec_torch.train --config
+    configs/frontier_v2.json`` through ``main``: 32 steps in chunks of 16
+    with a checkpoint every 16 and sampling at 32, then ``--resume`` to 48,
+    in a temporary workdir (the device pool cut from 1024 clips to 64);
+    returns the kernels' launch counts. Prints the chunk time per step,
+    steps/s, frames/s, peak memory, FLOPs, achieved TFLOP/s and MFU beside
+    the same for the bare unfused step (``bare``)."""
+    args = ["--config", str(CONFIG), "--steps-per-call", "16",
+            "--checkpoint-step", "16", "--sample-every", "32",
+            "--max-checkpoints-to-keep", "2", "--device-pool-clips", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp) / "run"
+        args += ["--workdir", str(workdir)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        for extra in (["--n-steps", "32"], ["--resume", "--n-steps", "48"]):
+            if train_cli.main(args + extra) != 0:
+                raise AssertionError(f"train main {extra} failed")
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        steps, summary = _check_trainer_workdir(workdir)
+    print(f"trainer path launches (32 + 16 steps, 2 samplings): {launches}",
+          flush=True)
+    if launches["mdct_cuda"] < 48 or launches["imdct_cuda"] < 1:
+        raise AssertionError("the trainer path did not run the MDCT on every "
+                             "step and the IMDCT in its sampling")
+    # one step_time per chunk (the chunk's time / 16); after the first chunk
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 16, 32)]
+    med = statistics.median(chunk_ms[1:])
+    flops = summary["flops_per_step"]
+    peak = profiling.peak_flops(device)
+
+    def rates(ms: float) -> str:
+        tflops = flops / (ms / 1e3) / 1e12
+        mfu = (f"mfu {tflops * 1e12 / peak:.4f}" if peak else
+               "mfu not measured (no peak known for this card)")
+        return (f"{tflops:.2f} achieved TFLOP/s, {mfu}")
+
+    print(f"[{card}] trainer, bf16, chunks of 16: chunk time per step "
+          f"{chunk_ms[0]:.3f} / {chunk_ms[1]:.3f} / {chunk_ms[2]:.3f} ms "
+          f"(chunks 1-3; the first includes the start), median after the "
+          f"first {med:.3f} ms, {1e3 / med:.3f} steps/s, "
+          f"{bare['rows'] / med * 1e3:.1f} frames/s; summary steps_per_sec "
+          f"{summary['steps_per_sec']:.3f} (run 2: 16 steps with sampling, "
+          f"checkpoints and the resume), wall {wall:.1f} s for both runs; "
+          f"peak memory {peak_gb:.3f} GB; {flops / 1e9:.1f} GFLOP per step, "
+          f"{rates(med)}", flush=True)
+    print(f"[{card}] bare step, same pass (unfused, bf16): step_ms median "
+          f"{bare['step_ms']:.3f}, {1e3 / bare['step_ms']:.3f} steps/s, "
+          f"{bare['rows'] / bare['step_ms'] * 1e3:.1f} frames/s, peak memory "
+          f"{bare['peak_gb']:.3f} GB, {rates(bare['step_ms'])}; trainer "
+          f"chunk time per step / bare step = {med / bare['step_ms']:.4f}",
+          flush=True)
+    return launches
+
+
+def chunk_probe(device: torch.device, bare: dict) -> int:
+    """The trainer's 16-step chunk alone (frontier-v2 config, bf16,
+    ``fused_stage`` off, no data thread): its time per step with and
+    without the device guard beside the bare step's, a profile of a 2-step
+    chunk (device busy share), and the host
+    synchronisations inside one chunk, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")`` with each call site's
+    stack. Returns the count."""
+    import traceback
+    import warnings
+
+    state, _ = train_setup(device, fused=False, precision="bfloat16")
+    config = load_config(CONFIG)
+    adapter = adapter_from_config(config, create_tokenization_strategy(
+        config.tokenization_strategy, config.tokenization_config))
+    run = make_multi_step(create_loss_strategy(config), 16, adapter,
+                          skip_nonfinite=True)
+    gen = torch.Generator(device).manual_seed(9)
+    batches = synth_audio(16 * TRAIN_CLIPS, CLIP_LEN, gen, device).reshape(
+        16, TRAIN_CLIPS, CLIP_LEN, 2)
+    unguarded = make_multi_step(create_loss_strategy(config), 16, adapter)
+
+    def per_step_ms(chunk) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk(state, batches, gen)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / 16
+
+    run(state, batches, gen)  # warm-up (the unguarded chunk runs the
+    # same kernels but for the guard's)
+    # guarded, unguarded, unguarded, guarded: a drift of the host's speed
+    # during the probe weighs on both alike
+    times = [per_step_ms(chunk) for chunk in (run, unguarded, unguarded, run)]
+    guarded_ms = statistics.mean(times[0::3])
+    unguarded_ms = statistics.mean(times[1:3])
+    print(f"one 16-step chunk alone (no data thread), guarded / unguarded / "
+          f"unguarded / guarded: {' / '.join(f'{t:.3f}' for t in times)} ms "
+          f"per step; mean {guarded_ms:.3f} ms with the device guard, "
+          f"{unguarded_ms:.3f} ms without ({guarded_ms / unguarded_ms:.4f}x); "
+          f"{guarded_ms / bare['step_ms']:.4f} and "
+          f"{unguarded_ms / bare['step_ms']:.4f} x the bare step's "
+          f"{bare['step_ms']:.3f} ms", flush=True)
+    # two steps suffice for the device's busy share; the profiler's own
+    # bookkeeping of a 16-step chunk took over a minute
+    pair = make_multi_step(create_loss_strategy(config), 2, adapter,
+                           skip_nonfinite=True)
+    profile("a 2-step chunk of the trainer's step, bf16",
+            lambda: pair(state, batches[:2], gen))
+
+    # call site -> count, split by whether the chunk's steps are on the
+    # stack (train_step.py) or not (switching the debug mode itself warns)
+    sites = {True: collections.Counter(), False: collections.Counter()}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if "warnings" not in f.filename]
+            inside = any(f.filename.endswith("train_step.py") for f in stack)
+            sites[inside]["; ".join(
+                f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                for f in stack[-4:])] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, metrics = run(state, batches, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    count = sum(sites[True].values())
+    print(f"host synchronisations inside one 16-step chunk: {count}"
+          + "".join(f"\n  {n} x {site}" for site, n in sites[True].items())
+          + "".join(f"\n  outside the steps: {n} x {site}"
+                    for site, n in sites[False].items()), flush=True)
+    if not bool(metrics["update_ok"].all()):
+        raise AssertionError("a step of the probed chunk was rejected")
+    return count
 
 
 def profile(label: str, fn) -> None:
@@ -807,23 +1031,42 @@ def main() -> int:
     if args.transforms_only:
         print(json.dumps({"transforms": check_kernels(device)}), flush=True)
         return 0
-    sass_profile()
+    clock = [time.perf_counter()]
 
-    results = {**check_kernels(device), **check_stage_kernels(device)}
+    def lap(phase: str) -> None:
+        """Print the seconds since the last lap (the smoke's own budget)."""
+        now = time.perf_counter()
+        print(f"phase time, {phase}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    sass_profile()
+    results = {**check_kernels(device)}
+    lap("transforms")
+    results.update(check_stage_kernels(device))
+    lap("stage kernels")
     paths = {}
     paths["roundtrip"], codec, requests = roundtrip_path(device, card)
-    paths["train"], state, step, batch = train_path(device, card)
+    lap("round trip")
+    paths["train"], state, step, batch, _ = train_path(device, card)
     profile("one bf16 train step, 16 clips x 32768",
             lambda: step(state, batch,
                          generator=torch.Generator(device).manual_seed(8)))
     del state, step, batch
     torch.cuda.empty_cache()
-    _, state, step, batch = train_path(device, card, fused=False, steps=5)
+    _, state, step, batch, bare = train_path(device, card, fused=False,
+                                             steps=5)
     profile("one bf16 train step, fused_stage off",
             lambda: step(state, batch,
                          generator=torch.Generator(device).manual_seed(8)))
     del state, step, batch
     torch.cuda.empty_cache()
+    lap("train steps")
+    paths["trainer"] = trainer_path(device, card, bare)
+    torch.cuda.empty_cache()
+    lap("trainer")
+    chunk_probe(device, bare)
+    torch.cuda.empty_cache()
+    lap("chunk probe")
     check_fused_against_plain(device)
     check_against_cpu(device)
     check_train_against_cpu(device)
@@ -831,6 +1074,7 @@ def main() -> int:
             lambda: codec.roundtrip(
                 requests["4 clips x 32768"],
                 generator=torch.Generator(device).manual_seed(3)))
+    lap("float32 checks")
 
     results["gelu_grn_cuda"]["launches_by_kernel"] = {
         variant: sum(p["gelu_grn_variants"][variant] for p in paths.values())

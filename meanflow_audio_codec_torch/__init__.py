@@ -14,7 +14,9 @@ Subpackages:
   ops       — MDCT/IMDCT (plain versions and CUDA kernel wrappers),
               tokenizer, time embeddings, dual-time sampler
   models    — ConvNeXt conditional flow and its encoder
-  training  — the token adapter (coefficient scale and per-frame gain)
+  training  — the token adapter, iMF objective, optimiser, train steps and
+              the trainer (``python -m meanflow_audio_codec_torch.train``)
+  data      — synthetic audio sources and the device replay pool
 """
 
 __version__ = "0.1.0"

@@ -55,3 +55,8 @@ def apply_loss_weighting(per_example: torch.Tensor, t: torch.Tensor,
             "loss_weighting='learned' is not ported yet")
     raise ValueError(f"Unknown loss_weighting: {weighting}. Must be one of: "
                      "'uniform', 'time_dependent', 'learned'")
+
+
+def ema(mu, dx, beta: float = 0.99):
+    """Scalar EMA for loss logging; returns ``dx`` when ``mu`` is None."""
+    return beta * mu + (1.0 - beta) * dx if mu is not None else dx

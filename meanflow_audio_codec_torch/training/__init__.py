@@ -1,1 +1,3 @@
-"""Training-side helpers the codec shares (the token adapter)."""
+"""Training: the token adapter, the iMF objective, the optimiser and train
+state, the train step and chunk, and the trainer with its checkpoints,
+logging and profiling."""

@@ -280,3 +280,127 @@ def test_stage_wrappers_reject_what_the_kernels_do_not_take(device):
         stage_cuda.ln_film_cuda(x, s[:1], s)
     with pytest.raises(ValueError, match="shape"):
         stage_cuda.gelu_grn_cuda(x, s[0, :4], s[0])
+
+
+# ---------------------------------------------------------------------------
+# the trainer's pieces on the card: device replay pool, chunk of steps,
+# msgpack round trip of a card state
+# ---------------------------------------------------------------------------
+
+def _tiny_train(device):
+    from meanflow_audio_codec_torch.configs import config_from_dict
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import (
+        create_tokenization_strategy,
+    )
+    from meanflow_audio_codec_torch.training.adapter import adapter_from_config
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+    from meanflow_audio_codec_torch.training.train_step import make_multi_step
+
+    cfg = config_from_dict({
+        "base": {"batch_size": 2, "n_steps": 10, "base_lr": 1e-3,
+                 "weight_decay": 1e-2, "seed": 0, "grad_clip_norm": 1.0,
+                 "warmup_steps": 1, "lr_schedule": "cosine"},
+        "model": {"noise_dimension": 128, "condition_dimension": 16,
+                  "latent_dimension": 8, "num_blocks": 2,
+                  "architecture": "convnet",
+                  "architecture_options": {"channels": 16, "spatial": 4,
+                                           "lift_channels": 8,
+                                           "bottleneck_dim": 32}},
+        "dataset": {"dataset": "audio", "tokenization_strategy": "mdct",
+                    "tokenization_config": {"window_size": 64,
+                                            "gain_norm": 0.05,
+                                            "coeff_scale": 4.0}},
+        "method": {"method": "improved_mean_flow",
+                   "use_improved_mean_flow": True,
+                   "time_sampling_full_proportion": 0.25},
+        "training": {"ema_decay": 0.9},
+        "tpu": {"precision": "float32"}})
+    model = create_flow_model(cfg, generator=torch.Generator().manual_seed(0))
+    state = TrainState(model, make_optimizer(cfg), cfg.ema_decay,
+                       device=device)
+    adapter = adapter_from_config(cfg, create_tokenization_strategy(
+        cfg.tokenization_strategy, cfg.tokenization_config))
+    return state, make_multi_step(create_loss_strategy(cfg), 2, adapter,
+                                  skip_nonfinite=True)
+
+
+def test_device_pool_on_the_card_equals_the_cpu(device):
+    from meanflow_audio_codec_torch.data import audio, device_pool
+
+    def source():
+        return audio.synthetic_audio_pipeline(seed=1, frame_size=512,
+                                              batch_size=4)
+
+    pools = [device_pool.DeviceReplayPool(source(), pool_clips=12, seed=3,
+                                          device=where)
+             for where in ("cpu", device)]
+    try:
+        for k, batch in ((2, 4), (1, 3), (3, 2)):
+            cpu, gpu = (pool.sample(k, batch) for pool in pools)
+            assert gpu.device.type == "cuda"
+            assert torch.equal(gpu.cpu(), cpu)
+            assert all(pool.refresh(wait=True) for pool in pools)
+            assert torch.equal(pools[1].pool.cpu(), pools[0].pool)
+    finally:
+        for pool in pools:
+            pool.close()
+
+
+def test_multi_step_on_the_card_matches_the_cpu(device):
+    """K = 2 float32 steps in one chunk with the same draws: Adam's first
+    moments on the card against the CPU's (relative L2 <= 1e-5, as the
+    smoke's step check)."""
+    gen = torch.Generator().manual_seed(4)
+    t = torch.arange(2048) / 44100.0
+    batches = (0.3 * torch.sin(2 * torch.pi * 330.0 * t)[None, None, :, None]
+               + 0.2 * torch.randn(2, 2, 2048, 2, generator=gen))
+    rows = 2 * ((2048 - 64) // 32 + 1)
+    noise = torch.randn(2, rows, 128, generator=gen)
+    tr = [torch.rand(2, rows, 1, generator=gen) for _ in range(2)]
+    t_, r_ = torch.maximum(*tr), torch.minimum(*tr)
+    moments, losses = [], []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the 3x3 convolutions in f32
+    try:
+        for where in ("cpu", device):
+            state, run = _tiny_train(where)
+            state, metrics = run(state, batches.to(where),
+                                 noise=noise.to(where), t=t_.to(where),
+                                 r=r_.to(where))
+            assert metrics["update_ok"].all()
+            assert state.step == 2
+            moments.append(torch.cat([m.reshape(-1).cpu()
+                                      for m in state.mu]))
+            losses.append(metrics["loss"].cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.testing.assert_close(losses[1], losses[0], rtol=1e-4, atol=0)
+    rel = ((moments[1] - moments[0]).norm() / moments[0].norm()).item()
+    assert rel <= 1e-5, rel
+
+
+def test_card_state_msgpack_round_trip(device, tmp_path):
+    from meanflow_audio_codec_torch import weights
+    from meanflow_audio_codec_torch.training import checkpoints
+
+    state, run = _tiny_train(device)
+    batches = 0.1 * torch.randn(2, 2, 2048, 2, device=device,
+                                generator=torch.Generator(device)
+                                .manual_seed(5))
+    state, _ = run(state, batches, torch.Generator(device).manual_seed(6))
+    path = checkpoints.save_checkpoint(state, tmp_path / "step_00002.msgpack")
+    other, _ = _tiny_train(device)
+    checkpoints.load_checkpoint(path, other)
+    assert other.step == state.step == 2
+    for name in ("params", "mu", "nu", "ema"):
+        for a, b in zip(getattr(state, name), getattr(other, name)):
+            assert b.device.type == "cuda" and torch.equal(a, b), name
+    tree = weights.train_state_to_flax(other)
+    assert tree["step"] == 2 and tree["ema_params"] is not None

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it (and chip_smoke.py) loads no
-JAX, Flax or Optax module and nothing of the JAX package, and no file of the
-port names one in an import. The kernel wrappers hold no ``try``: a CUDA
-tensor goes to the kernel or raises."""
+JAX, Flax, Optax or msgpack module and nothing of the JAX package, and no
+file of the port names one in an import. The kernel wrappers hold no
+``try``: a CUDA tensor goes to the kernel or raises."""
 
 import ast
 import subprocess
@@ -12,7 +12,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "meanflow_audio_codec_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "meanflow_audio_codec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "meanflow_audio_codec_tpu")
 
 _PROBE = """
 import importlib, pkgutil, sys

@@ -12,10 +12,14 @@ Tolerances, each with its reason:
   * the iMF loss and mse: rtol 1e-4; every parameter gradient: rtol 1e-3 /
     atol 1e-5 of the largest gradient of its leaf (two forwards and a JVP in
     float32, summed in another order, then differentiated);
-  * K = 3 train steps: loss and grad_norm rtol 1e-4; parameters and EMA
-    within 1e-2 * lr of JAX's. Adam's first updates are about
-    lr * g / (|g| + eps), so agreeing gradients give agreeing updates to a
-    small fraction of lr, whatever the gradient's size.
+  * K = 3 train steps, one by one or as one chunk (``make_multi_step``):
+    loss and grad_norm rtol 1e-4; parameters and EMA within 1e-2 * lr of
+    JAX's. Adam's first updates are about lr * g / (|g| + eps), so agreeing
+    gradients give agreeing updates to a small fraction of lr, whatever the
+    gradient's size;
+  * the chunk against the port's own single steps: bitwise (the same
+    operations on the same tensors; only where the guard is decided
+    differs).
 """
 
 from pathlib import Path
@@ -52,6 +56,9 @@ from meanflow_audio_codec_tpu.ops.tokenize import (
 )
 from meanflow_audio_codec_tpu.training import objectives as jobjectives
 from meanflow_audio_codec_tpu.training.train_step import (
+    make_multi_step as jax_make_multi_step,
+)
+from meanflow_audio_codec_tpu.training.train_step import (
     make_train_step as jax_make_train_step,
 )
 from meanflow_audio_codec_tpu.training.trainer import (
@@ -87,7 +94,10 @@ from meanflow_audio_codec_torch.training.optim import (
     make_lr_schedule,
     make_optimizer,
 )
-from meanflow_audio_codec_torch.training.train_step import make_train_step
+from meanflow_audio_codec_torch.training.train_step import (
+    make_multi_step,
+    make_train_step,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 EXACT = dict(rtol=1e-6, atol=1e-7)
@@ -284,12 +294,14 @@ def test_lr_schedule_matches_optax(schedule, warmup):
     for step in range(25):
         want = (optax_schedule(step) if callable(optax_schedule)
                 else optax_schedule)
-        np.testing.assert_allclose(ours(step), float(want), rtol=1e-6,
+        got = ours(torch.tensor(step))
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
                                    atol=1e-12)
         assert lr_at_step(cfg, step) == pytest.approx(
             jax_lr_at_step(jcfg, step), rel=1e-12)
-    if warmup:
-        assert ours(0) == 0.0  # the first update under warmup has lr 0
+    if warmup:  # the first update under warmup has lr 0
+        assert float(ours(torch.tensor(0))) == 0.0
 
 
 @pytest.mark.parametrize("clip_norm", [0.05, 100.0], ids=["clipped",
@@ -306,9 +318,10 @@ def test_adamw_and_clip_match_optax(clip_norm):
     opt_state = tx.init(jparams)
     opt = make_optimizer(cfg)
     assert isinstance(opt, AdamW) and opt.grad_clip_norm == clip_norm
-    params = [torch.from_numpy(tree[k].copy()) for k in ("w", "b")]
-    mu = [torch.zeros_like(p) for p in params]
-    nu = [torch.zeros_like(p) for p in params]
+    # the optimiser works on flat tensors: w's 12 elements, then b's 4
+    params = torch.cat([torch.from_numpy(tree[k].reshape(-1))
+                        for k in ("w", "b")])
+    mu, nu = torch.zeros_like(params), torch.zeros_like(params)
     for count in range(5):
         g = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
              for k, v in tree.items()}
@@ -319,9 +332,12 @@ def test_adamw_and_clip_match_optax(clip_norm):
         norm = global_norm(grads)
         np.testing.assert_allclose(_np(norm), np.asarray(optax.global_norm(
             jax.tree_util.tree_map(jnp.asarray, g))), rtol=1e-6)
-        params, mu, nu = opt.update(params, grads, mu, nu, count, norm)
-        for p, k in zip(params, ("w", "b")):
-            np.testing.assert_allclose(_np(p), np.asarray(jparams[k]),
+        params, mu, nu = opt.update(
+            params, torch.cat([gr.reshape(-1) for gr in grads]), mu, nu,
+            torch.tensor(count), norm)
+        for p, k in zip(params.split([12, 4]), ("w", "b")):
+            np.testing.assert_allclose(_np(p).reshape(tree[k].shape),
+                                       np.asarray(jparams[k]),
                                        rtol=1e-5, atol=1e-7)
 
 
@@ -545,6 +561,33 @@ def test_train_state_asks_for_the_card_by_default(monkeypatch):
         TrainState(model, make_optimizer(cfg), cfg.ema_decay, device="cuda")
 
 
+def test_train_state_keeps_the_model_on_its_flat_parameters():
+    """The model's parameters are views of the state's one flat tensor:
+    a committed step moves them, and the per-parameter lists of moments and
+    EMA read and write the flat tensors behind them."""
+    cfg = config_from_dict(_train_config(True).to_dict())
+    state = TrainState(create_flow_model(cfg), make_optimizer(cfg),
+                       cfg.ema_decay, device="cpu")
+    adapter = adapter_from_config(cfg, create_tokenization_strategy(
+        cfg.tokenization_strategy, cfg.tokenization_config))
+    step = make_train_step(create_loss_strategy(cfg), adapter)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    gen = torch.Generator().manual_seed(0)
+    for batch in _batches()[:2]:  # the first update under warmup has lr 0
+        state, _ = step(state, torch.from_numpy(batch), generator=gen)
+    live = dict(state.model.named_parameters())
+    assert all(live[n] is p for n, p in zip(state.names, state.params))
+    assert not all(torch.equal(a, b.detach())
+                   for a, b in zip(before, state.model.parameters()))
+    assert [m.shape for m in state.mu] == [p.shape for p in state.params]
+    state.mu = [torch.full_like(p, 2.0) for p in state.params]
+    assert all(bool((m == 2.0).all()) for m in state.mu)
+    model = create_flow_model(cfg)
+    next(model.parameters()).data = next(model.parameters()).data.double()
+    with pytest.raises(ValueError, match="one dtype"):
+        TrainState(model, make_optimizer(cfg), cfg.ema_decay, device="cpu")
+
+
 @pytest.mark.parametrize("label", ["batch", "noise", "t", "r"])
 def test_train_step_rejects_tensors_off_the_state_device(label):
     cfg = config_from_dict(_train_config(True).to_dict())
@@ -561,3 +604,152 @@ def test_train_step_rejects_tensors_off_the_state_device(label):
         step(state, args.pop("batch"), **args)
     assert state.step == 0
     assert all(torch.equal(a, b) for a, b in zip(before, state.params))
+
+
+# ---------------------------------------------------------------------------
+# K steps in one chunk (make_multi_step)
+# ---------------------------------------------------------------------------
+
+
+def _jax_chunk(jcfg, params, batches):
+    """JAX's ``make_multi_step`` over ``batches`` and the noise, t and r its
+    scan draws from each sub-key (``key, sub = split(key)`` per step)."""
+    model = jax_create_flow_model(jcfg)
+    state = JaxTrainState.create(
+        apply_fn=model.apply, params=params, tx=jax_make_optimizer(jcfg),
+        ema_params=jax.tree_util.tree_map(jnp.array, params),
+        ema_decay=jcfg.training.ema_decay)
+    objective = jobjectives.create_loss_strategy(jcfg)
+    adapter = jax_adapter_from_config(jcfg, jax_create_tokenization_strategy(
+        jcfg.tokenization_strategy, jcfg.tokenization_config))
+    run = jax_make_multi_step(objective, len(batches), tokenizer=adapter,
+                              flatten=True, donate=False, skip_nonfinite=True)
+    key = jax.random.PRNGKey(11)
+    state, metrics = run(state, key, jnp.asarray(np.stack(batches)))
+    draws = []
+    for batch in batches:
+        key, sub = jax.random.split(key)
+        draws.append(_jax_draws(objective, sub,
+                                adapter.tokenize(jnp.asarray(batch))))
+    stacked = tuple(torch.stack(d) for d in zip(*draws))
+    return state, metrics, stacked
+
+
+def _jax_params(jcfg):
+    return _random_params(jax_create_flow_model(jcfg), 3,
+                          jnp.zeros((2, 2 * WINDOW)), jnp.zeros((2, 2)),
+                          method="init_all", scale=0.2)
+
+
+def _port_chunk(jcfg, params):
+    cfg = config_from_dict(jcfg.to_dict())
+    state, _ = _port_state(jcfg, params)
+    adapter = adapter_from_config(cfg, create_tokenization_strategy(
+        cfg.tokenization_strategy, cfg.tokenization_config))
+    return state, make_multi_step(create_loss_strategy(cfg), STEPS, adapter,
+                                  skip_nonfinite=True)
+
+
+def _assert_state_close(state, jstate, lr):
+    for name, tree in (("params", jstate.params), ("ema", jstate.ema_params)):
+        want = weights.flax_to_torch(tree)
+        got = (dict(state.model.named_parameters()) if name == "params"
+               else state.ema_state_dict())
+        for key, value in want.items():
+            np.testing.assert_allclose(_np(got[key]), value.numpy(), rtol=0,
+                                       atol=1e-2 * lr, err_msg=f"{name} {key}")
+
+
+def test_multi_step_matches_jax():
+    jcfg = _train_config(False)
+    params = _jax_params(jcfg)
+    batches = _batches()
+    jstate, jmetrics, (noise, t, r) = _jax_chunk(jcfg, params, batches)
+
+    state, run = _port_chunk(jcfg, params)
+    state, metrics = run(state, torch.from_numpy(np.stack(batches)),
+                         noise=noise, t=t, r=r)
+    assert metrics["update_ok"].dtype == torch.bool
+    assert metrics["update_ok"].tolist() == [True] * STEPS
+    for name in ("loss", "grad_norm", "mse"):
+        assert metrics[name].shape == (STEPS,)
+        np.testing.assert_allclose(_np(metrics[name]),
+                                   np.asarray(jmetrics[name]), rtol=1e-4)
+    assert state.step == int(jstate.step) == STEPS
+    _assert_state_close(state, jstate, jcfg.base.base_lr)
+
+
+def test_multi_step_equals_single_steps():
+    jcfg = _train_config(False)
+    params = _jax_params(jcfg)
+    batches = [torch.from_numpy(b) for b in _batches()]
+    gen = torch.Generator().manual_seed(3)
+    rows = 2 * ((FRAME_SIZE - WINDOW) // (WINDOW // 2) + 1)
+    draws = [(torch.randn(rows, 2 * WINDOW, generator=gen),
+              *time_sampling.sample_tr(rows, gen)) for _ in batches]
+    noise, t, r = (torch.stack(d) for d in zip(*draws))
+    state, run = _port_chunk(jcfg, params)
+    state, metrics = run(state, torch.stack(batches), noise=noise, t=t, r=r)
+    single, step = _port_state(jcfg, params)
+    for k, (batch, (noise, t, r)) in enumerate(zip(batches, draws)):
+        single, m = step(single, batch, noise=noise, t=t, r=r)
+        assert torch.equal(m["loss"], metrics["loss"][k])
+        assert torch.equal(m["grad_norm"], metrics["grad_norm"][k])
+    assert single.step == state.step == STEPS
+    for name in ("params", "mu", "nu", "ema"):
+        for a, b in zip(getattr(single, name), getattr(state, name)):
+            assert torch.equal(a, b), name
+
+
+def test_multi_step_draws_from_its_generator():
+    jcfg = _train_config(False)
+    params = _jax_params(jcfg)
+    batches = torch.from_numpy(np.stack(_batches()))
+    losses = []
+    for seed in (1, 1, 2):
+        state, run = _port_chunk(jcfg, params)
+        _, metrics = run(state, batches, torch.Generator().manual_seed(seed))
+        losses.append(metrics["loss"])
+    assert torch.equal(losses[0], losses[1])
+    assert not torch.equal(losses[0], losses[2])
+
+
+def test_multi_step_guard_keeps_the_whole_state_on_the_device():
+    """A NaN batch at step 2 of 3: the chunk keeps that step's state (the
+    guard selects on the device) and goes on, as JAX's scan does."""
+    jcfg = _train_config(False)
+    params = _jax_params(jcfg)
+    batches = _batches()
+    batches[1] = batches[1].copy()
+    batches[1][0, 100, 0] = np.nan
+    jstate, jmetrics, (noise, t, r) = _jax_chunk(jcfg, params, batches)
+    assert np.asarray(jmetrics["update_ok"]).tolist() == [True, False, True]
+
+    state, run = _port_chunk(jcfg, params)
+    # step 1 alone, on the single step: the state step 3 must start from
+    one, step = _port_state(jcfg, params)
+    one, _ = step(one, torch.from_numpy(batches[0]), noise=noise[0],
+                  t=t[0], r=r[0])
+    state, metrics = run(state, torch.from_numpy(np.stack(batches)),
+                         noise=noise, t=t, r=r)
+    assert metrics["update_ok"].tolist() == [True, False, True]
+    assert not np.isfinite(_np(metrics["loss"][1]))
+    assert state.step == int(jstate.step) == 2
+    _assert_state_close(state, jstate, jcfg.base.base_lr)
+    # step 3 started from step 1's state: replay it on the single step
+    one, m = step(one, torch.from_numpy(batches[2]), noise=noise[2],
+                  t=t[2], r=r[2])
+    assert torch.equal(m["loss"], metrics["loss"][2])
+    for name in ("params", "mu", "nu", "ema"):
+        for a, b in zip(getattr(one, name), getattr(state, name)):
+            assert torch.equal(a, b), name
+
+
+def test_multi_step_takes_exactly_its_chunk():
+    state, run = _port_chunk(_train_config(False),
+                             _jax_params(_train_config(False)))
+    with pytest.raises(ValueError, match="expected 3 batches"):
+        run(state, torch.from_numpy(np.stack(_batches()[:2])))
+    with pytest.raises(ValueError, match="batches is on meta"):
+        run(state, torch.empty((3, 2, FRAME_SIZE, 2), device="meta"))
+    assert state.step == 0
