@@ -8,8 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc,
-     all sources at once) and print the build seconds, the ptxas report and
+  2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc)
+     and the rANS coder from native/entropy.cpp (g++), all sources at once,
+     and print the build seconds, the ptxas report and
      the instruction mix of the MDCT's, IMDCT's and single-read GELU+GRN's
      main loops (cuobjdump);
   3. hold each kernel against its plain PyTorch version (TF32 off): the
@@ -17,7 +18,8 @@ and prints no result line):
      a ragged shape (3 rows, W=576, hop 100) and the 10 s clip shape (2 rows
      x 441000 samples, 1721 frames), and both at the train shape (the
      step's tokenize, 32 rows x 32768 samples, and the trainer's sampling
-     decode of its 16 clips, [32, 127, 512]), rtol 1e-4 / atol 1e-3; the
+     decode of its 16 clips, [32, 127, 512]) and a streaming push's (2
+     rows x 4864 samples), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels) and ragged shapes, in bf16 and f32, with the stage
      ops' forward-AD tangents and gradients against plain-op autograd, and
@@ -34,7 +36,7 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path (and the trainer's, phase 7) is driven with the kernels'
+     each path (and those of phases 7-9) is driven with the kernels'
      launch counts (and the count of each GELU+GRN kernel) set to 0 just
      before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
@@ -54,11 +56,27 @@ and prints no result line):
      and profiles the trainer's 16-step chunk alone and counts the host
      synchronisations inside one chunk
      (``torch.cuda.set_sync_debug_mode("warn")``, with their stacks);
-  8. profiles of one round trip and one bf16 train step with ``fused_stage``
-     on and off (device time by kernel, busy share);
-  9. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
-     trainer), then the result line ``{"ok": true, "device": {...}}``
-     last.
+  8. (run right after the trainer, on its workdir) serving:
+     ``AudioCodec.from_workdir`` on the workdir and on a copy holding only
+     ``serving_step_00048.msgpack``, both checked to serve the run's EMA;
+     a 10 s 44.1 kHz stereo clip through ``encode_bytes`` ->
+     ``decode_bytes`` as MACB v1 8-bit, v1 4-bit and v2 ECSQ
+     (``step_frac`` 0.5), each checked to be rANS-coded, to decode from
+     bytes as in memory bit for bit, to give ``(nf-1)*hop + 2W`` finite
+     samples, with the device encode, quantize + device-to-host + rANS,
+     ``encode_bytes`` and ``decode_bytes`` times and the stored kbps;
+     ``decode(x)`` twice without a generator equal; then the codec CLI
+     (encode, info, decode) on a 48 kHz WAV;
+  9. streaming: the same length of clip through ``StreamingCodec`` in
+     pushes of 4096 samples (16 frames), ms per push and the real-time
+     factor; the streaming encoder against batch ``encode`` and the
+     streaming decoder in 16- against 64-frame chunks, within relative L2
+     2e-2 (bf16 compute; the measured max error is printed);
+  10. profiles of one round trip and one bf16 train step with
+     ``fused_stage`` on and off (device time by kernel, busy share);
+  11. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
+     trainer, codec bytes, codec CLI, streaming), then the result line
+     ``{"ok": true, "device": {...}}`` last.
 
 With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
@@ -163,6 +181,18 @@ STAGE_DIFF = dict(rtol=1e-4, atol=1e-4)
 #: relative L2 of the flattened gradients / Adam first moments (the same f32
 #: arithmetic in another order; read 3.2e-7 and 9.6e-7 on an H100)
 TRAIN_REL_L2 = 1e-5
+
+
+#: the stored formats the codec phase writes and reads (codec_cli's --bits
+#: and --latent-step)
+FORMATS = {"v1 8-bit": dict(bits=8), "v1 4-bit": dict(bits=4),
+           "v2 ECSQ step_frac 0.5": dict(step_frac=0.5)}
+BYTES_REPEATS = 5
+STREAM_CHUNK = 4096  # samples per streaming push: 16 frames at hop 256
+#: streaming against batch on the card, bf16 compute: the model's products
+#: may take other algorithms at other row counts (relative L2, the bf16
+#: tolerance of the codec's CPU parity tests)
+STREAM_REL_L2 = 2e-2
 
 
 def card_line() -> str:
@@ -284,17 +314,20 @@ def _errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 def check_kernels(device: torch.device) -> dict:
     """The MDCT and IMDCT against their plain versions at the codec, ragged
-    and 10 s clip shapes and at the train shape (the step's tokenize, 32 rows
-    x 32768 samples, and the trainer's sampling decode, [32, 127, 512]);
-    times at the codec shape (keys ``ms``, ...), the 10 s shape
-    (``ms_10s``, ...) and the train shape (``ms_train``, ...)."""
+    and 10 s clip shapes, at the train shape (the step's tokenize, 32 rows
+    x 32768 samples, and the trainer's sampling decode, [32, 127, 512]) and
+    at a streaming push's (2 rows x 4864 samples, 18 frames); times at the
+    codec shape (keys ``ms``, ...), the 10 s shape (``ms_10s``, ...), the
+    train shape (``ms_train``, ...) and the push (``ms_stream``, ...)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {"max_abs_err": 0.0}
                for name in ("mdct_cuda", "imdct_cuda")}
     for label, rows, length, w, hop in [
             ("codec", 8, 32768, 512, 256), ("ragged", 3, 5000, 576, 100),
             ("10s", 2, 10 * SAMPLE_RATE, 512, 256),
-            ("train", 2 * TRAIN_CLIPS, CLIP_LEN, 512, 256)]:
+            ("train", 2 * TRAIN_CLIPS, CLIP_LEN, 512, 256),
+            # a streaming push: 4096 new samples after the 768 carried
+            ("stream", 2, STREAM_CHUNK + 768, 512, 256)]:
         cfg = MDCTConfig(w, hop)
         nf = num_frames_for_length(length, w, hop)
         out_len = output_length(nf, w, hop)
@@ -772,11 +805,13 @@ def _read_wav(path: Path) -> tuple[int, int, int]:
         return wav.getnframes(), wav.getnchannels(), wav.getframerate()
 
 
-def _check_trainer_workdir(workdir: Path) -> tuple[list[dict], dict]:
+def _check_trainer_workdir(workdir: Path
+                           ) -> tuple[list[dict], dict, dict]:
     """The trainer's records after 32 steps and a resume to 48: 48 step
     records with finite loss and grad_norm and update_ok, the resumed run
     starting at step 32, the retained checkpoints and sidecars, a serving
-    file holding the run's EMA, the WAV sample and the summary."""
+    file holding the run's EMA, the WAV sample and the summary. Returns the
+    step records, the summary and the EMA of step 48."""
     records = read_log(workdir / "logs" / "train_log.jsonl")
     starts = [i for i, r in enumerate(records) if r.get("event") == "start"]
     steps = [r for r in records if "event" not in r]
@@ -818,34 +853,33 @@ def _check_trainer_workdir(workdir: Path) -> tuple[list[dict], dict]:
           f"and grad_norm, update_ok on every step; {names}; serving params "
           f"== the run's EMA ({len(ema)} tensors); step_00048.wav {frames} "
           f"frames x {channels}", flush=True)
-    return steps, summary
+    return steps, summary, ema
 
 
-def trainer_path(device: torch.device, card: str, bare: dict):
+def trainer_path(device: torch.device, card: str, bare: dict,
+                 workdir: Path):
     """``python -m meanflow_audio_codec_torch.train --config
     configs/frontier_v2.json`` through ``main``: 32 steps in chunks of 16
     with a checkpoint every 16 and sampling at 32, then ``--resume`` to 48,
-    in a temporary workdir (the device pool cut from 1024 clips to 64);
-    returns the kernels' launch counts. Prints the chunk time per step,
-    steps/s, frames/s, peak memory, FLOPs, achieved TFLOP/s and MFU beside
-    the same for the bare unfused step (``bare``)."""
+    in ``workdir`` (the device pool cut from 1024 clips to 64); returns the
+    kernels' launch counts and the run's EMA parameters. Prints the chunk
+    time per step, steps/s, frames/s, peak memory, FLOPs, achieved TFLOP/s
+    and MFU beside the same for the bare unfused step (``bare``)."""
     args = ["--config", str(CONFIG), "--steps-per-call", "16",
             "--checkpoint-step", "16", "--sample-every", "32",
-            "--max-checkpoints-to-keep", "2", "--device-pool-clips", "64"]
-    with tempfile.TemporaryDirectory() as tmp:
-        workdir = Path(tmp) / "run"
-        args += ["--workdir", str(workdir)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        zero_launches()
-        t0 = time.perf_counter()
-        for extra in (["--n-steps", "32"], ["--resume", "--n-steps", "48"]):
-            if train_cli.main(args + extra) != 0:
-                raise AssertionError(f"train main {extra} failed")
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-        steps, summary = _check_trainer_workdir(workdir)
+            "--max-checkpoints-to-keep", "2", "--device-pool-clips", "64",
+            "--workdir", str(workdir)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    for extra in (["--n-steps", "32"], ["--resume", "--n-steps", "48"]):
+        if train_cli.main(args + extra) != 0:
+            raise AssertionError(f"train main {extra} failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    steps, summary, ema = _check_trainer_workdir(workdir)
     print(f"trainer path launches (32 + 16 steps, 2 samplings): {launches}",
           flush=True)
     if launches["mdct_cuda"] < 48 or launches["imdct_cuda"] < 1:
@@ -878,7 +912,7 @@ def trainer_path(device: torch.device, card: str, bare: dict):
           f"{bare['peak_gb']:.3f} GB, {rates(bare['step_ms'])}; trainer "
           f"chunk time per step / bare step = {med / bare['step_ms']:.4f}",
           flush=True)
-    return launches
+    return launches, ema
 
 
 def chunk_probe(device: torch.device, bare: dict) -> int:
@@ -964,6 +998,228 @@ def chunk_probe(device: torch.device, bare: dict) -> int:
     return count
 
 
+
+def _wall_ms(fn, repeats: int) -> tuple[float, object]:
+    """Median host milliseconds of ``fn`` ended by a synchronise, and its
+    last result."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), out
+
+
+def _same_weights(codec: AudioCodec, params: dict, what: str) -> None:
+    got = codec.model.state_dict()
+    if set(got) != set(params) or not all(
+            torch.equal(got[k].cpu(), params[k].cpu()) for k in params):
+        raise AssertionError(f"the codec from {what} does not serve the "
+                             "run's EMA")
+
+
+def codec_path(device: torch.device, card: str, workdir: Path,
+               ema: dict, scratch: Path):
+    """Serve the trainer phase's workdir (``AudioCodec.from_workdir``) and a
+    copy of it holding only ``serving_step_00048.msgpack``; both must serve
+    the run's EMA. Then a 10 s 44.1 kHz stereo clip through
+    ``encode_bytes`` -> ``decode_bytes`` in each stored format, checking the
+    rANS coding, in-memory == from-bytes decode, the output length and a
+    reproducible default decode, and timing the pieces; then the codec CLI
+    (encode, info, decode) on a 48 kHz WAV. Returns the launch counts of the
+    bytes path and of the CLI, and the served codec."""
+    from meanflow_audio_codec_torch.data.audio import write_wav
+    from meanflow_audio_codec_torch.ops import latent_quant
+    from meanflow_audio_codec_torch.tools import codec_cli
+
+    t0 = time.perf_counter()
+    codec = AudioCodec.from_workdir(workdir)
+    load_s = time.perf_counter() - t0
+    _same_weights(codec, ema, "step_00048.msgpack")
+    serving = scratch / "serving_only"
+    (serving / "checkpoints").mkdir(parents=True)
+    (serving / "config.json").write_bytes(
+        (workdir / "config.json").read_bytes())
+    name = "serving_step_00048.msgpack"
+    (serving / "checkpoints" / name).write_bytes(
+        (workdir / "checkpoints" / name).read_bytes())
+    window, hop = codec.adapter.strategy.config.window_size, codec._hop
+    t0 = time.perf_counter()
+    _same_weights(AudioCodec.from_workdir(serving), ema, name)
+    print(f"codec: from_workdir served step_00048.msgpack's EMA "
+          f"({load_s:.1f} s) and, from a copy holding only {name}, the same "
+          f"weights ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    clip = synth_audio(1, 10 * SAMPLE_RATE,
+                       torch.Generator(device).manual_seed(10), device)
+    seconds = clip.shape[1] / SAMPLE_RATE
+    nf = num_frames_for_length(clip.shape[1], window, hop)
+    expected = (1, (nf - 1) * hop + 2 * window, 2)
+    for kwargs in FORMATS.values():  # warm-up: plans and the coder's build
+        codec.decode_bytes(codec.encode_bytes(clip, **kwargs))
+    torch.cuda.synchronize()
+
+    zero_launches()
+    for label, kwargs in FORMATS.items():
+        enc_ms, (latents, gains) = _wall_ms(
+            lambda: codec.encode_with_gains(clip), BYTES_REPEATS)
+        pack_ms, data = _wall_ms(lambda: latent_quant.pack_bitstream(
+            codec.quantize(latents, gains, **kwargs)), BYTES_REPEATS)
+        bytes_ms, data = _wall_ms(lambda: codec.encode_bytes(clip, **kwargs),
+                                  BYTES_REPEATS)
+        gen = torch.Generator(device)
+        dec_ms, recon = _wall_ms(lambda: codec.decode_bytes(
+            data, generator=gen.manual_seed(4)), BYTES_REPEATS)
+        header = latent_quant.describe_bitstream(data)
+        if header["coding"] != "rANS":
+            raise AssertionError(f"{label}: stored {header['coding']}, not "
+                                 "rANS-coded")
+        in_memory = codec.decode_packed(codec.encode_packed(clip, **kwargs),
+                                        generator=gen.manual_seed(4))
+        if not torch.equal(in_memory, recon):
+            raise AssertionError(f"{label}: decode_packed != decode_bytes")
+        if tuple(recon.shape) != expected or not torch.isfinite(recon).all():
+            raise AssertionError(f"{label}: output {tuple(recon.shape)} "
+                                 f"(expected {expected}) or not finite")
+        kbps = len(data) * 8 / seconds / 1000.0
+        print(f"[{card}] codec bytes, 10 s clip, {label}: device encode "
+              f"{enc_ms:.3f} ms, quantize + device-to-host + rANS "
+              f"{pack_ms:.3f} ms, encode_bytes {bytes_ms:.3f} ms, "
+              f"decode_bytes {dec_ms:.3f} ms (medians of {BYTES_REPEATS}); "
+              f"{len(data)} bytes = {kbps:.1f} kbps stored (v1 nominal "
+              f"at {header['bits']} bits "
+              f"{codec.bitrate_kbps(header['bits']):.1f} kbps; seeded "
+              f"weights: a rate, not a quality figure); {header['coding']}, "
+              f"in-memory == from-bytes decode", flush=True)
+    launches = read_launches()
+    print(f"codec bytes path launches (3 formats x {BYTES_REPEATS} encodes, "
+          f"encode_bytes and decode_bytes, + 3 in-memory checks): "
+          f"{launches}", flush=True)
+    latents = codec.encode(clip)
+    if not torch.equal(codec.decode(latents), codec.decode(latents)):
+        raise AssertionError("decode(x) twice gave different audio")
+    print("codec: decode(x) twice without a generator gives equal audio",
+          flush=True)
+
+    wav, macb, out = (scratch / "in_48k.wav", scratch / "in.macb",
+                      scratch / "out.wav")
+    at_48k = synth_audio(1, 10 * 48000, torch.Generator().manual_seed(11),
+                         torch.device("cpu"))
+    write_wav(wav, at_48k[0].numpy(), sample_rate=48000)
+    zero_launches()
+    for argv in (["encode", str(wav), "--workdir", str(serving), "-o",
+                  str(macb)], ["info", str(macb)],
+                 ["decode", str(macb), "--workdir", str(serving), "-o",
+                  str(out)]):
+        if codec_cli.main(argv) != 0:
+            raise AssertionError(f"codec_cli {argv[0]} failed")
+    cli_launches = read_launches()
+    frames, channels, rate = _read_wav(out)
+    nf_cli = num_frames_for_length(10 * SAMPLE_RATE, window, hop)
+    if (frames, channels, rate) != ((nf_cli - 1) * hop + 2 * window, 2,
+                                    SAMPLE_RATE):
+        raise AssertionError(f"codec_cli decode: {frames} x {channels} at "
+                             f"{rate} Hz")
+    print(f"codec_cli encode -> info -> decode on a 48 kHz WAV: "
+          f"{frames} frames x {channels} at {rate} Hz; launches "
+          f"{cli_launches}", flush=True)
+    for path, counts in (("bytes", launches), ("CLI", cli_launches)):
+        for kernel in ("mdct_cuda", "imdct_cuda"):
+            if counts[kernel] == 0:
+                raise AssertionError(f"{kernel} was not launched on the "
+                                     f"codec {path} path")
+    return launches, cli_launches, codec
+
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    diff = (got.float() - ref.float())
+    return (diff.abs().max().item(),
+            (diff.norm() / ref.float().norm()).item())
+
+
+def streaming_path(device: torch.device, card: str, codec: AudioCodec):
+    """The 10 s clip through ``StreamingCodec`` in chunks of 4096 samples
+    (16 frames); checks the streaming encoder against batch ``encode`` and
+    the streaming decoder under two chunkings (16 and 64 frames). Returns
+    the launch counts of the duplex run."""
+    from meanflow_audio_codec_torch.streaming import (
+        StreamingDecoder,
+        StreamingEncoder,
+    )
+
+    clip = synth_audio(1, 10 * SAMPLE_RATE,
+                       torch.Generator(device).manual_seed(12), device)
+    seconds = clip.shape[1] / SAMPLE_RATE
+    full = clip.shape[1] // STREAM_CHUNK * STREAM_CHUNK
+
+    def duplex_run():
+        duplex = codec.streaming(seed=0)
+        push_ms, outs = [], []
+        for i in range(0, full, STREAM_CHUNK):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(duplex.push(clip[:, i:i + STREAM_CHUNK]))
+            torch.cuda.synchronize()
+            push_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(duplex.flush(clip[:, full:]))
+        torch.cuda.synchronize()
+        return push_ms, torch.cat(outs, dim=1)
+
+    duplex_run()  # warm-up: plans at the chunk's row counts
+    zero_launches()
+    t0 = time.perf_counter()
+    push_ms, out = duplex_run()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    window, hop = codec.adapter.strategy.config.window_size, codec._hop
+    nf = num_frames_for_length(clip.shape[1], window, hop)
+    if (tuple(out.shape) != (1, (nf - 1) * hop + 2 * window, 2)
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"streaming output {tuple(out.shape)}")
+    chunk_ms = STREAM_CHUNK / SAMPLE_RATE * 1e3
+    print(f"[{card}] streaming, 10 s clip in {len(push_ms)} pushes of "
+          f"{STREAM_CHUNK} samples: push median "
+          f"{statistics.median(push_ms):.3f} ms, max {max(push_ms):.3f} ms "
+          f"({chunk_ms:.1f} ms of audio each); whole stream "
+          f"{total_s * 1e3:.1f} ms, "
+          f"real-time factor {total_s / seconds:.5f}; latency "
+          f"{codec.streaming().latency_samples} samples; launches "
+          f"{launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched on the "
+                                 "streaming path")
+    duplex = codec.streaming(seed=0)
+    duplex.push(clip[:, :STREAM_CHUNK])  # past the lookahead
+    profile(f"4 streaming pushes of {STREAM_CHUNK} samples",
+            lambda: [duplex.push(clip[:, i:i + STREAM_CHUNK]) for i in
+                     range(STREAM_CHUNK, 5 * STREAM_CHUNK, STREAM_CHUNK)])
+
+    latents, gains = codec.encode_with_gains(clip)
+    enc = StreamingEncoder(codec)
+    parts = [enc.push(clip[:, i:i + STREAM_CHUNK])
+             for i in range(0, full, STREAM_CHUNK)]
+    streamed = torch.cat(parts + [enc.flush(clip[:, full:])], dim=1)
+    enc_err = _rel_l2(streamed, latents)
+
+    def decode(step: int) -> torch.Tensor:
+        dec = StreamingDecoder(codec, seed=1)
+        outs = [dec.push(latents[:, i:i + step], gains=gains[:, i:i + step])
+                for i in range(0, latents.shape[1], step)]
+        return torch.cat(outs + [dec.flush()], dim=1)
+
+    dec_err = _rel_l2(decode(16), decode(64))
+    print(f"streaming vs batch on the card (bf16 compute): latents max_abs_err "
+          f"{enc_err[0]:.3e} rel_l2 {enc_err[1]:.3e}; decode in 16- vs "
+          f"64-frame chunks max_abs_err {dec_err[0]:.3e} rel_l2 "
+          f"{dec_err[1]:.3e} (rel_l2 <= {STREAM_REL_L2})", flush=True)
+    if not (enc_err[1] <= STREAM_REL_L2 and dec_err[1] <= STREAM_REL_L2):
+        raise AssertionError("streaming disagrees with batch")
+    return launches
+
+
 def profile(label: str, fn) -> None:
     """Device time by kernel for one call of ``fn``, and the device's busy
     share of its wall time."""
@@ -1011,8 +1267,9 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
+    # the CUDA sources and the rANS coder (g++), all compilers at once
     logs = _build.build(("mdct", "imdct") if args.transforms_only
-                        else _build.SOURCES)
+                        else _build.SOURCES + tuple(_build.HOST_SOURCES))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for name, log in logs.items():
@@ -1061,9 +1318,19 @@ def main() -> int:
     del state, step, batch
     torch.cuda.empty_cache()
     lap("train steps")
-    paths["trainer"] = trainer_path(device, card, bare)
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp) / "run"
+        paths["trainer"], ema = trainer_path(device, card, bare, workdir)
+        torch.cuda.empty_cache()
+        lap("trainer")
+        paths["codec_bytes"], paths["codec_cli"], served = codec_path(
+            device, card, workdir, ema, Path(tmp))
+        del ema
+        lap("codec")
+    paths["streaming"] = streaming_path(device, card, served)
+    del served
     torch.cuda.empty_cache()
-    lap("trainer")
+    lap("streaming")
     chunk_probe(device, bare)
     torch.cuda.empty_cache()
     lap("chunk probe")

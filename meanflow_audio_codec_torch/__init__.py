@@ -12,11 +12,17 @@ versions.
 
 Subpackages:
   ops       — MDCT/IMDCT (plain versions and CUDA kernel wrappers),
-              tokenizer, time embeddings, dual-time sampler
+              tokenizer, time embeddings, dual-time sampler, the latent
+              quantizers and MACB bitstream, the rANS coder's binding
   models    — ConvNeXt conditional flow and its encoder
   training  — the token adapter, iMF objective, optimiser, train steps and
               the trainer (``python -m meanflow_audio_codec_torch.train``)
-  data      — synthetic audio sources and the device replay pool
+  data      — synthetic audio sources, WAV input and the device replay pool
+  tools     — the codec CLI (``python -m
+              meanflow_audio_codec_torch.tools.codec_cli``)
+
+``codec.AudioCodec`` serves a trained run (``from_workdir``, the byte API);
+``streaming`` runs it on chunked audio.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Synthetic audio sources, host-side batch pools and the WAV writer.
+"""Synthetic audio sources, host-side batch pools, WAV input and output.
 
 Counterpart of the synthetic part of ``meanflow_audio_codec_tpu/data/audio.py``
 (the ``tonal``, ``rich``, ``speech``, ``mixed`` and ``mixed2`` families,
@@ -6,15 +6,18 @@ Counterpart of the synthetic part of ``meanflow_audio_codec_tpu/data/audio.py``
 ``prefetch_batches`` and ``write_wav``), copied as it is: plain numpy with
 seeded ``default_rng`` generators, so the same seed gives the same batches,
 bit for bit, in both packages. Batches are float32 ``[B, frame_size, 2]``.
+File input for the codec CLI is ``load_audio_file`` on WAV, with the
+polyphase ``resample_audio``.
 
-The disk corpora (``build_audio_pipeline``, the decoders, the native loader)
-are not ported yet.
+The disk corpora (``build_audio_pipeline``, the native loader) and the AIFF,
+FLAC and MP3 decoders are not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import warnings
 import wave
 from pathlib import Path
 from typing import Iterator
@@ -23,6 +26,8 @@ import numpy as np
 
 TARGET_SAMPLE_RATE = 44100
 DEFAULT_FRAME_SIZE = 256 * 256 * 3  # ~4.46 s @ 44.1 kHz
+#: file types the JAX package decodes through its native loader or SDL
+_UNPORTED_EXTENSIONS = (".aiff", ".aif", ".flac", ".mp3")
 
 
 def synthetic_audio_pipeline(seed: int = 0,
@@ -517,3 +522,72 @@ def write_wav(path: Path | str, audio: np.ndarray,
         wav.setsampwidth(2)
         wav.setframerate(sample_rate)
         wav.writeframes(pcm.tobytes())
+
+
+def _decode_wav(path: Path) -> tuple[np.ndarray, int] | None:
+    """(C, T) float32 samples and the rate of an 8-, 16- or 32-bit PCM WAV;
+    None for another sample width."""
+    with wave.open(str(path), "rb") as wav:
+        rate = wav.getframerate()
+        channels = wav.getnchannels()
+        width = wav.getsampwidth()
+        raw = wav.readframes(wav.getnframes())
+    if width == 2:
+        pcm = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+    elif width == 4:
+        pcm = np.frombuffer(raw, dtype=np.int32).astype(np.float32) / 2**31
+    elif width == 1:
+        pcm = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        return None
+    audio = pcm.reshape(-1, channels).T  # (C, T)
+    return audio, rate
+
+
+def resample_audio(audio: np.ndarray, rate: int, target_rate: int) -> np.ndarray:
+    """Polyphase resample (C, T) float32 audio to the target rate (scipy's
+    ``resample_poly`` at the rational rate ratio)."""
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(rate, target_rate)
+    return resample_poly(audio, target_rate // g, rate // g,
+                         axis=1).astype(np.float32)
+
+
+def load_audio_file(path: Path | str,
+                    target_rate: int = TARGET_SAMPLE_RATE,
+                    resample: bool = False) -> np.ndarray | None:
+    """Decode one WAV file to stereo (2, T) float32 at the target rate.
+
+    Files at other rates are dropped with a warning unless ``resample``
+    (the codec CLI's setting) converts them; a file that does not decode
+    warns and gives None, as does a type no loader reads. AIFF, FLAC and MP3
+    raise ``NotImplementedError``: their decoders are not ported yet.
+    """
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix in _UNPORTED_EXTENSIONS:
+        raise NotImplementedError(
+            f"{suffix} input is not ported yet (ROADMAP queue 1 item 8: the "
+            "native loader); convert the file to WAV")
+    if suffix != ".wav":
+        return None
+    try:
+        decoded = _decode_wav(path)
+    except (wave.Error, EOFError, OSError, ValueError) as exc:
+        warnings.warn(f"Failed to decode {path}: {exc}")
+        return None
+    if decoded is None:
+        return None
+    audio, rate = decoded
+    if rate != target_rate:
+        if not resample:
+            warnings.warn(
+                f"Skipping {path}: sample rate {rate} != {target_rate}")
+            return None
+        audio = resample_audio(audio, rate, target_rate)
+    if audio.shape[0] == 1:
+        audio = np.concatenate([audio, audio], axis=0)  # mono -> stereo dup
+    return np.ascontiguousarray(audio[:2])

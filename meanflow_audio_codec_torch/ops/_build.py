@@ -1,11 +1,14 @@
-"""Build the port's CUDA sources with nvcc and load them through ctypes.
+"""Build the port's native sources and load them through ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/lib<name>-<digest>.so`` inside the package, where the digest
-covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
-edited source or header is rebuilt and an unchanged one is reused. Sources
-build in parallel, one ``nvcc`` each, at first use; nothing is compiled when
-a module is imported.
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with nvcc on
+its own into ``build/lib<name>-<digest>.so`` inside the package, where the
+digest covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused. The
+host C++ sources the port binds (``HOST_SOURCES``: the repository's
+``native/entropy.cpp``, the rANS coder) compile the same way with g++, the
+digest covering the source and the flags. Sources build in parallel, one
+compiler each, at first use; nothing is compiled when a module is imported.
+A failed build raises with the compiler's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("mdct", "imdct", "stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: host C++ sources by library name (built with g++, never edited here)
+HOST_SOURCES = {"entropy": PACKAGE_DIR.parent / "native" / "entropy.cpp"}
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _libraries: dict[str, ctypes.CDLL] = {}
 
@@ -41,37 +47,50 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> Path:
+    return HOST_SOURCES.get(name, CSRC_DIR / f"{name}.cu")
+
+
 def library_path(name: str) -> Path:
-    """Where the compiled ``name`` kernel library lives (built or not)."""
-    text = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
-        header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the compiled ``name`` library lives (built or not)."""
+    if name in HOST_SOURCES:
+        text, flags = _source(name).read_bytes(), GXX_FLAGS
+    else:
+        text = _source(name).read_bytes() + b"".join(
+            header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))
+        flags = NVCC_FLAGS
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
-    """Compile every missing library in ``names``, all nvcc runs at once.
+    """Compile every missing library in ``names``, all compilers at once.
 
-    Returns the compiler's output (register and shared-memory use from
-    ``-Xptxas -v``) for each library built now; raises if any build fails.
+    Returns the compiler's output (for the CUDA sources, register and
+    shared-memory use from ``-Xptxas -v``) for each library built now;
+    raises if any build fails.
     """
     pending = {name: library_path(name) for name in names
                if not library_path(name).exists()}
     if not pending:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name, target in pending.items():
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        if name in HOST_SOURCES:
+            compiler = [shutil.which("g++") or "g++", *GXX_FLAGS]
+        else:
+            compiler = [_nvcc(), *NVCC_FLAGS]
+        cmd = [*compiler, "-o", str(tmp), str(_source(name))]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failures = {}, []
     for name, (tmp, proc) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
+            failures.append(f"{Path(proc.args[0]).name} failed for "
+                            f"{_source(name).name}:\n{logs[name]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, pending[name])
@@ -81,7 +100,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded ``name`` kernel library, built first if it is missing."""
+    """The loaded ``name`` library, built first if it is missing."""
     if name not in _libraries:
         build((name,))
         _libraries[name] = ctypes.CDLL(str(library_path(name)))

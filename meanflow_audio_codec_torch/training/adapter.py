@@ -50,7 +50,11 @@ class TokenAdapter:
                            ) -> tuple[torch.Tensor, torch.Tensor]:
         """Flat tokens ``[B*nf, D]`` and the gains ``[B, nf, 1]`` the decode
         needs to undo the normalisation (all ones with ``gain_norm`` off)."""
-        tokens = self.strategy.tokenize(x)
+        return self.scale_and_gain(self.strategy.tokenize(x))
+
+    def scale_and_gain(self, tokens: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`tokenize_with_gain` of tokenizer output ``[B, nf, D]``."""
         if self.scale != 1.0:
             tokens = tokens / self.scale
         if self.gain_norm:

@@ -265,6 +265,12 @@ def list_checkpoints(checkpoint_dir: Path | str) -> list[Path]:
     return sorted(found, key=get_checkpoint_step)
 
 
+def find_latest_checkpoint(checkpoint_dir: Path | str) -> Path | None:
+    """The full checkpoint of the highest step, not validated."""
+    found = list_checkpoints(checkpoint_dir)
+    return found[-1] if found else None
+
+
 def find_valid_checkpoint(checkpoint_dir: Path | str,
                           state=None) -> Path | None:
     """The newest checkpoint that passes validation (against ``state`` when

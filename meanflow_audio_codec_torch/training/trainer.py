@@ -199,8 +199,14 @@ def train_flow(config: CodecConfig, resume: bool = False,
               workdir / "metadata.json")
     config_path = workdir / "config.json"
     if resume and config_path.exists():
-        generate_config_diff(json.loads(config_path.read_text()),
-                             config.to_dict(), workdir / "config_diff.json")
+        try:
+            generate_config_diff(json.loads(config_path.read_text()),
+                                 config.to_dict(),
+                                 workdir / "config_diff.json")
+        except (ValueError, TypeError, AttributeError, OSError) as exc:
+            # a config.json that is not a v2 dict, e.g. truncated by a
+            # crash: train on without a diff, as the JAX trainer does
+            print(f"Could not diff previous config: {exc}")
     save_json(config.to_dict(), config_path)
 
     # ---- model / optimizer / state -----------------------------------------

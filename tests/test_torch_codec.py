@@ -184,6 +184,19 @@ def test_decode_is_reproducible_from_a_generator(f32_codecs):
     torch.testing.assert_close(rt, a, rtol=0, atol=0)
 
 
+def test_decode_without_a_generator_is_reproducible(f32_codecs):
+    """As JAX's decode uses PRNGKey(0) when given no key, the port draws
+    from a fresh generator seeded 0: decode(x) twice gives equal audio."""
+    _, codec = f32_codecs
+    latents, gains = codec.encode_with_gains(_audio(batch=1, seed=9))
+    a = codec.decode(latents, gains=gains)
+    b = codec.decode(latents, gains=gains)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    seeded = codec.decode(latents, gains=gains,
+                          generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(a, seeded, rtol=0, atol=0)
+
+
 def test_gains_are_ones_without_gain_norm():
     _, codec = _codecs("float32", gain_norm=0.0)
     latents, gains = codec.encode_with_gains(_audio(batch=1, seed=6))

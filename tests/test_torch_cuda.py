@@ -287,23 +287,12 @@ def test_stage_wrappers_reject_what_the_kernels_do_not_take(device):
 # msgpack round trip of a card state
 # ---------------------------------------------------------------------------
 
-def _tiny_train(device):
+def _tiny_config():
+    """A small float32 frontier-like codec config (W=64 stereo, two
+    ConvNeXt stages, coeff_scale 4, gain_norm 0.05, EMA 0.9)."""
     from meanflow_audio_codec_torch.configs import config_from_dict
-    from meanflow_audio_codec_torch.models.factories import create_flow_model
-    from meanflow_audio_codec_torch.ops.tokenize import (
-        create_tokenization_strategy,
-    )
-    from meanflow_audio_codec_torch.training.adapter import adapter_from_config
-    from meanflow_audio_codec_torch.training.objectives import (
-        create_loss_strategy,
-    )
-    from meanflow_audio_codec_torch.training.optim import (
-        TrainState,
-        make_optimizer,
-    )
-    from meanflow_audio_codec_torch.training.train_step import make_multi_step
 
-    cfg = config_from_dict({
+    return config_from_dict({
         "base": {"batch_size": 2, "n_steps": 10, "base_lr": 1e-3,
                  "weight_decay": 1e-2, "seed": 0, "grad_clip_norm": 1.0,
                  "warmup_steps": 1, "lr_schedule": "cosine"},
@@ -322,6 +311,24 @@ def _tiny_train(device):
                    "time_sampling_full_proportion": 0.25},
         "training": {"ema_decay": 0.9},
         "tpu": {"precision": "float32"}})
+
+
+def _tiny_train(device):
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import (
+        create_tokenization_strategy,
+    )
+    from meanflow_audio_codec_torch.training.adapter import adapter_from_config
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+    from meanflow_audio_codec_torch.training.train_step import make_multi_step
+
+    cfg = _tiny_config()
     model = create_flow_model(cfg, generator=torch.Generator().manual_seed(0))
     state = TrainState(model, make_optimizer(cfg), cfg.ema_decay,
                        device=device)
@@ -404,3 +411,117 @@ def test_card_state_msgpack_round_trip(device, tmp_path):
             assert b.device.type == "cuda" and torch.equal(a, b), name
     tree = weights.train_state_to_flax(other)
     assert tree["step"] == 2 and tree["ema_params"] is not None
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: the byte path, the rANS coder, streaming
+# ---------------------------------------------------------------------------
+
+def _tiny_codecs(device):
+    """The same seeded float32 codec on the CPU and on the card."""
+    from meanflow_audio_codec_torch.codec import AudioCodec
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+
+    cfg = _tiny_config()
+    model = create_flow_model(cfg, generator=torch.Generator().manual_seed(0))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    return (AudioCodec(model, None, cfg, device="cpu"),
+            AudioCodec(create_flow_model(cfg), weights, cfg, device=device))
+
+
+def _clip(batch=2, length=4096, seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(length) / 44100.0
+    return (0.3 * torch.sin(2 * torch.pi * 440.0 * t)[None, :, None]
+            + 0.2 * torch.randn(batch, length, 2, generator=gen))
+
+
+@pytest.mark.parametrize("kwargs", [dict(bits=8), dict(bits=4),
+                                    dict(step_frac=0.5)],
+                         ids=["v1-8bit", "v1-4bit", "v2-ecsq"])
+def test_byte_path_on_the_card_matches_the_cpu(device, kwargs):
+    """encode_bytes / decode_bytes through the MDCT and IMDCT kernels
+    against the same float32 codec on the CPU (cuDNN's TF32 off): codes
+    within one step at under 1% of positions, and the same bytes decoded
+    with the same noise within rtol / atol 1e-3 (the smoke's card-vs-CPU
+    codec tolerance)."""
+    from meanflow_audio_codec_torch.ops import latent_quant as lq
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu, gpu = _tiny_codecs(device)
+        audio = _clip()
+        before = (mdct_cuda_mod.launches, imdct_cuda_mod.launches)
+        data = gpu.encode_bytes(audio, **kwargs)
+        want = cpu.encode_bytes(audio, **kwargs)
+        noise = torch.randn(2 * ((4096 - 64) // 32 + 1), 128,
+                            generator=torch.Generator().manual_seed(2))
+        decoded = gpu.decode_bytes(want, noise=noise)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert mdct_cuda_mod.launches > before[0]
+    assert imdct_cuda_mod.launches > before[1]
+    assert decoded.device.type == device.type
+    a, b = lq.unpack_bitstream(data), lq.unpack_bitstream(want)
+    diff = (a.codes.int() - b.codes.int()).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() < 0.01
+    torch.testing.assert_close(a.gains, b.gains, rtol=0.03, atol=0)
+    torch.testing.assert_close(decoded.cpu(),
+                               cpu.decode_bytes(want, noise=noise),
+                               rtol=1e-3, atol=1e-3)
+    stream = gpu.encode_packed(audio, **kwargs)
+    gen = torch.Generator(device).manual_seed(3)
+    in_memory = gpu.decode_packed(stream, generator=gen)
+    gen = torch.Generator(device).manual_seed(3)
+    assert torch.equal(in_memory, gpu.decode_bytes(
+        lq.pack_bitstream(stream), generator=gen))
+    assert torch.equal(gpu.decode_bytes(data), gpu.decode_bytes(data))
+
+
+def test_the_rans_coder_builds_into_the_package(device):
+    import numpy as np
+
+    from meanflow_audio_codec_torch.ops import _build, entropy
+
+    codes = np.clip(np.round(np.random.default_rng(0).laplace(0, 12, 50_000)),
+                    -127, 127).astype(np.int8)
+    data = entropy.entropy_encode(codes)
+    path = _build.library_path("entropy")
+    assert path.exists() and path.parent == _build.BUILD_DIR
+    assert len(data) < codes.size
+    assert (entropy.entropy_decode(data, codes.size) == codes).all()
+
+
+def test_streaming_on_the_card_matches_batch(device):
+    """Chunked encode against batch encode and decode under two chunkings
+    on the card: the model's products may take other algorithms at other
+    row counts, so rtol / atol 1e-4 rather than bit for bit."""
+    from meanflow_audio_codec_torch.streaming import (
+        StreamingDecoder,
+        StreamingEncoder,
+    )
+
+    _, gpu = _tiny_codecs(device)
+    audio = _clip(length=8192, seed=4).to(device)
+    latents, gains = gpu.encode_with_gains(audio)
+    enc = StreamingEncoder(gpu)
+    before = (mdct_cuda_mod.launches, imdct_cuda_mod.launches)
+    parts = [enc.push(audio[:, i:i + 512]) for i in range(0, 8192, 512)]
+    streamed = torch.cat(parts + [enc.flush()], dim=1)
+    torch.testing.assert_close(streamed, latents, rtol=1e-4, atol=1e-4)
+    assert mdct_cuda_mod.launches - before[0] == 17  # 16 pushes + flush
+
+    def decode(step):
+        dec = StreamingDecoder(gpu, seed=5)
+        nf = latents.shape[1]
+        out = [dec.push(latents[:, i:i + step], gains=gains[:, i:i + step])
+               for i in range(0, nf, step)]
+        return torch.cat(out + [dec.flush()], dim=1)
+
+    one, chunked = decode(latents.shape[1]), decode(16)
+    torch.cuda.synchronize()
+    assert imdct_cuda_mod.launches > before[1]
+    assert torch.isfinite(one).all()
+    torch.testing.assert_close(chunked, one, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing it (and chip_smoke.py) loads no
 JAX, Flax, Optax or msgpack module and nothing of the JAX package, and no
-file of the port names one in an import. The kernel wrappers hold no
-``try``: a CUDA tensor goes to the kernel or raises."""
+file of the port names one in an import (the codec CLI included). The
+kernel wrappers, ``ops/_build.py`` and the stored format's coder hold no
+``try``: a CUDA tensor goes to the kernel or raises, and a coder that does
+not build raises rather than storing raw codes."""
 
 import ast
 import subprocess
@@ -52,8 +54,43 @@ def test_no_file_of_the_port_imports_jax(path):
     assert bad == []
 
 
+def test_the_serving_modules_are_checked():
+    """The serving surface (streaming, the CLI subpackage, the stored
+    format and its coder) is among the files the tests above walk."""
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"streaming.py", "tools/__init__.py", "tools/codec_cli.py",
+            "ops/latent_quant.py", "ops/entropy.py"} <= names
+
+
+_CLI_PROBE = """
+import runpy, sys
+sys.argv = ["codec_cli", "info", {path!r}]
+try:
+    runpy.run_module("meanflow_audio_codec_torch.tools.codec_cli",
+                     run_name="__main__")
+except SystemExit:
+    pass
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in {forbidden!r})))
+"""
+
+
+def test_the_codec_cli_runs_without_jax(tmp_path):
+    path = tmp_path / "empty.macb"
+    path.write_bytes(b"MACB" + bytes([1, 8, 0, 0]) + bytes(20))
+    code = _CLI_PROBE.format(path=str(path), forbidden=set(FORBIDDEN))
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    info, loaded = result.stdout.split("\n")[:2]
+    assert info.endswith("MACB v1, 8-bit raw codes (symmetric), batch=0 "
+                         "frames=0 latent_dim=0, 28 bytes")
+    assert loaded == ""
+
+
 @pytest.mark.parametrize("name", ["ops/mdct_cuda.py", "ops/imdct_cuda.py",
-                                  "ops/stage_cuda.py", "ops/_build.py"])
+                                  "ops/stage_cuda.py", "ops/_build.py",
+                                  "ops/entropy.py", "ops/latent_quant.py"])
 def test_kernel_paths_have_no_fallback_try(name):
     tree = ast.parse((PORT / name).read_text())
     assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))

@@ -205,6 +205,30 @@ def test_port_resumes_a_jax_workdir(runs, tmp_path):
     assert (workdir / "samples" / "step_00006.wav").exists()
 
 
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_resume_with_a_truncated_config_trains_on(runs, tmp_path, capsys,
+                                                  package):
+    """A config.json cut short (e.g. by a crash) is not diffed: both
+    trainers say so, write no config_diff.json and train on."""
+    jax_dir, _, _ = runs
+    workdir = tmp_path / "truncated"
+    shutil.copytree(jax_dir, workdir)
+    text = (workdir / "config.json").read_text()
+    (workdir / "config.json").write_text(text[:len(text) // 2])
+    data = _tiny(workdir, base={"n_steps": 6})
+    if package == "port":
+        train_flow(config_from_dict(data), resume=True, device="cpu")
+    else:
+        jax_train_flow(TrainFlowConfig.from_dict(data), resume=True)
+    assert "Could not diff previous config" in capsys.readouterr().out
+    assert not (workdir / "config_diff.json").exists()
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    starts = [i for i, r in enumerate(records) if r.get("event") == "start"]
+    assert [r["step"] for r in records[starts[-1] + 1:]] == [4, 5]
+    assert json.loads((workdir / "config.json").read_text())["base"][
+        "n_steps"] == 6
+
+
 def test_geometry_helpers():
     config = config_from_dict(_tiny("unused"))
     assert input_example_shape(config) == (2048, 2)
