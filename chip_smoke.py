@@ -22,7 +22,8 @@ and prints no result line):
      rows x 4864 samples), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels) and ragged shapes, in bf16 and f32, with the stage
-     ops' forward-AD tangents and gradients against plain-op autograd, and
+     ops' forward-AD tangents, gradients and grad-of-JVP (reverse mode
+     through the tangent) against plain-op autograd, and
      both GELU+GRN kernels (single read at those shapes, two pass at a
      longer P); and time each kernel, its plain version and one library
      call (where one exists) with CUDA events, the MDCT and IMDCT at the
@@ -31,12 +32,13 @@ and prints no result line):
   4. the served path: ``AudioCodec.roundtrip`` at the full width of
      configs/frontier_v2.json (bf16 compute, seeded random weights) on four
      32768-sample stereo clips and one 10 s 44.1 kHz stereo clip;
-  5. the train path: the iMF ``make_train_step`` at frontier-v2 width with
+  5. the train path (the config's remat honoured, as in every train phase
+     below): the iMF ``make_train_step`` at frontier-v2 width with
      ``fused_stage`` on, bf16 compute, on 16 synthetic stereo clips of 32768
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path (and those of phases 7-9) is driven with the kernels'
+     each path (and those of phases 7-12) is driven with the kernels'
      launch counts (and the count of each GELU+GRN kernel) set to 0 just
      before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
@@ -72,10 +74,32 @@ and prints no result line):
      factor; the streaming encoder against batch ``encode`` and the
      streaming decoder in 16- against 64-frame chunks, within relative L2
      2e-2 (bf16 compute; the measured max error is printed);
-  10. profiles of one round trip and one bf16 train step with
+  10. (run right after serving, on the trainer's workdir) the QAT trainer:
+     chain stage 2c at full width, the trainer's step-48 checkpoint and its
+     metadata copied into a fresh workdir and ``python -m
+     meanflow_audio_codec_torch.train --config configs/frontier_v2_qat.json
+     --resume`` for 2 chunks of 16 (STE through the ECSQ 0.5 grid, remat),
+     sampling at the end; chunk ms per step, peak memory, ``update_ok`` on
+     every step; the run served and a 10 s clip's latents through the ECSQ
+     0.5 byte path within half a step;
+  11. objectives: one bare bf16 step each (median of 5 after 2 warm-ups,
+     peak memory) of flow matching, mean flow, the autoencoder, iMF without
+     the stop-gradient (plain and ``fused_stage``) and iMF with the learned
+     weighting, at frontier-v2's batch, then one 2-step sampling pass for
+     the flow objectives (Heun for flow matching); launches per objective;
+  12. remat: the bare iMF step without remat, with
+     ``architecture_options.remat`` under ``dots_saveable`` (each stage's
+     elementwise segments recomputed) and under policy None (each stage
+     recomputed whole) and with ``tpu.remat``, and the ``fused_stage``
+     step without remat (step ms, peak memory),
+     and their float32 gradients at one clip within relative L2 1e-5;
+  13. float32 checks (phase 6) plus each objective's loss and gradients on
+     the card against the CPU at one clip (relative L2 <= 1e-5), then
+     profiles of one round trip and one bf16 train step with
      ``fused_stage`` on and off (device time by kernel, busy share);
-  11. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
-     trainer, codec bytes, codec CLI, streaming), then the result line
+  14. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
+     trainer, codec bytes, codec CLI, streaming, QAT trainer, each
+     objective, each remat setting), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
@@ -125,6 +149,7 @@ from meanflow_audio_codec_torch.ops.mdct import (
     windowed_basis,
 )
 from meanflow_audio_codec_torch.ops.mdct_cuda import mdct_cuda
+from meanflow_audio_codec_torch.ops.sampling import sample, sample_dual_time
 from meanflow_audio_codec_torch.ops.tokenize import (
     MDCTTokenization,
     create_tokenization_strategy,
@@ -144,6 +169,7 @@ from meanflow_audio_codec_torch.training.train_step import (
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "frontier_v2.json"
+QAT_CONFIG = REPO / "configs" / "frontier_v2_qat.json"
 SAMPLE_RATE = 44100
 RTOL, ATOL = 1e-4, 1e-3
 REPEATS = 10  # timed round trips per request
@@ -193,6 +219,28 @@ STREAM_CHUNK = 4096  # samples per streaming push: 16 frames at hop 256
 #: may take other algorithms at other row counts (relative L2, the bf16
 #: tolerance of the codec's CPU parity tests)
 STREAM_REL_L2 = 2e-2
+#: the bare steps of the objectives and switches phase: label -> (config
+#: fields over frontier_v2.json, fused_stage)
+OBJECTIVES = {
+    "fm": (dict(method="flow_matching", use_improved_mean_flow=False), False),
+    "mf": (dict(method="mean_flow", use_improved_mean_flow=False), False),
+    "ae": (dict(method="autoencoder", use_improved_mean_flow=False), False),
+    "imf_no_stop_gradient": (dict(use_stop_gradient=False), False),
+    "imf_no_stop_gradient_fused": (dict(use_stop_gradient=False), True),
+    "imf_learned": (dict(loss_weighting="learned"), False),
+}
+OBJ_WARMUP, OBJ_STEPS = 2, 5
+#: the remat phase: label -> (architecture_options over the config's,
+#: tpu.remat, fused_stage); ``dots_saveable`` checkpoints each stage's
+#: elementwise segments, policy None each stage whole (models/remat.py); the
+#: fused step is timed without remat and left out of the gradient check
+REMAT = {"none": (dict(remat=False), False, False),
+         "stage_dots_saveable": (dict(remat=True,
+                                      remat_policy="dots_saveable"), False,
+                                 False),
+         "stage_whole": (dict(remat=True, remat_policy=None), False, False),
+         "loss_tpu_remat": (dict(remat=False), True, False),
+         "none_fused": (dict(remat=False), False, True)}
 
 
 def card_line() -> str:
@@ -535,6 +583,39 @@ def _check_stage_op_calculus(op, args, tangents) -> float:
     return (outs[0][1] - outs[1][1]).abs().max().item()
 
 
+def _check_stage_grad_of_jvp(op, args, tangent) -> float:
+    """Reverse mode through the public op's tangent (the objectives without
+    the stop-gradient): the gradient of sum((u + 0.3 du)^2), (u, du) the
+    JVP along ``tangent`` for x, with respect to every input and the
+    tangent, kernel path against autograd of the plain version. Each
+    gradient is held at rtol 1e-4 and an atol of 1e-4 times its largest
+    magnitude, so that the check does not depend on the loss's scale (a
+    zero gradient, or one off by a factor, fails); returns the largest error
+    relative to that magnitude."""
+    import torch.autograd.forward_ad as fwAD
+
+    ref = {stage.fused_ln_film: stage._ln_film_ref,
+           stage.fused_ln_norm: stage._ln_norm_ref,
+           stage.fused_gelu_grn: stage._gelu_grn_ref}[op]
+    outs = []
+    for fn in (op, lambda *a: ref(*a)[0]):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        v = tangent.detach().clone().requires_grad_()
+        with fwAD.dual_level(), stage.differentiable_tangents():
+            u, du = fwAD.unpack_dual(fn(fwAD.make_dual(leaves[0], v),
+                                        *leaves[1:]))
+        outs.append(torch.autograd.grad(
+            (u.float() + 0.3 * du.float()).square().sum(), leaves + [v]))
+    torch.cuda.synchronize()
+    errors = []
+    for g, r in zip(*outs):
+        scale = r.abs().max().item()
+        torch.testing.assert_close(g, r, rtol=STAGE_DIFF["rtol"],
+                                   atol=STAGE_DIFF["atol"] * scale)
+        errors.append((g - r).abs().max().item() / scale)
+    return max(errors)
+
+
 def _time_op_phases(op, args) -> tuple[float, float, float]:
     """Milliseconds of the public op's forward, forward with a JVP (forward
     AD, a tangent on every floating input), and forward + backward, as the
@@ -626,9 +707,14 @@ def check_stage_kernels(device: torch.device) -> dict:
                     tangents = [torch.randn(a.shape, generator=gen,
                                             device=device) for a in args]
                     terr = _check_stage_op_calculus(op, args, tangents)
+                    gerr = _check_stage_grad_of_jvp(op, args, tangents[0])
                     print(f"{name} public op, f32 train shape: tangent "
                           f"max_abs_err {terr:.3e}, gradient within "
-                          f"{STAGE_DIFF} of plain autograd", flush=True)
+                          f"{STAGE_DIFF} of plain autograd; grad-of-JVP "
+                          f"(x, parameters, tangent) max_abs_err / max|g| "
+                          f"{gerr:.3e} (rtol 1e-4, atol 1e-4 max|g|)",
+                          flush=True)
+                    res["grad_of_jvp_rel_err"] = gerr
                     continue
                 res["ms"] = time_ms(kernel)
                 res["plain_ms"] = time_ms(plain)
@@ -654,15 +740,25 @@ def check_stage_kernels(device: torch.device) -> dict:
     return results
 
 
-def train_setup(device: torch.device, fused: bool, precision: str,
-                seed: int = 0):
-    """(train state, step function) for the frontier-v2 config with
-    ``fused_stage`` set as asked, weights from ``seed``."""
+def frontier_config(precision: str, fused: bool, options: dict | None = None,
+                    **fields):
+    """configs/frontier_v2.json (its ``architecture_options``, remat
+    included, as the file sets them) with ``precision``, ``fused_stage``,
+    more ``options`` and other config ``fields`` set."""
     base = load_config(CONFIG)
-    config = dataclasses.replace(
+    return dataclasses.replace(
         base, precision=precision,
         architecture_options=dict(base.architecture_options,
-                                  fused_stage=fused))
+                                  fused_stage=fused, **(options or {})),
+        **fields)
+
+
+def train_setup(device: torch.device, fused: bool, precision: str,
+                seed: int = 0, options: dict | None = None, **fields):
+    """(train state, step function) for the frontier-v2 config with
+    ``fused_stage``, more architecture ``options`` and config ``fields``
+    set as asked, weights from ``seed``."""
+    config = frontier_config(precision, fused, options, **fields)
     model = create_flow_model(
         config, generator=torch.Generator().manual_seed(seed))
     adapter = adapter_from_config(config, create_tokenization_strategy(
@@ -670,6 +766,7 @@ def train_setup(device: torch.device, fused: bool, precision: str,
     state = TrainState(model, make_optimizer(config), config.ema_decay,
                        device=device)
     step = make_train_step(create_loss_strategy(config), adapter,
+                           remat=config.remat,
                            skip_nonfinite=config.skip_nonfinite_updates)
     return state, step
 
@@ -999,6 +1096,285 @@ def chunk_probe(device: torch.device, bare: dict) -> int:
 
 
 
+def _bare_steps(state, step, batch, gen, label: str, card: str) -> dict:
+    """``OBJ_WARMUP`` then ``OBJ_STEPS`` timed steps of ``step`` on
+    ``batch``; the median step ms, the peak memory of the timed steps and
+    the last loss. Every step must be finite and accepted."""
+    for i in range(OBJ_WARMUP):
+        state, metrics = step(state, batch, generator=gen)
+        _check_step(metrics, f"{label} warm-up step {i}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(state.device)
+    step_ms = []
+    for i in range(OBJ_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        _check_step(metrics, f"{label} timed step {i}")
+    out = {"step_ms": statistics.median(step_ms),
+           "peak_gb": torch.cuda.max_memory_allocated(state.device) / 1e9,
+           "loss": metrics["loss"].item()}
+    print(f"[{card}] {label}: step_ms median {out['step_ms']:.3f} max "
+          f"{max(step_ms):.3f} (n={OBJ_STEPS} after {OBJ_WARMUP} warm-ups), "
+          f"peak memory {out['peak_gb']:.3f} GB, last loss {out['loss']:.6f} "
+          f"(finite), update_ok on every step", flush=True)
+    return out
+
+
+def objectives_path(device: torch.device, card: str) -> dict:
+    """One bare step of each objective and switch of ``OBJECTIVES`` at
+    frontier-v2 width (bf16, the config's remat, frontier-v2's batch of 16
+    clips x 32768 samples), timed, then, for the flow objectives, one
+    sampling pass of the trainer's sampler (Heun for flow matching, the
+    dual-time sampler for the mean flows; autoencoders sample nothing) and
+    its IMDCT decode. Each objective's launches are counted from 0; returns
+    them by path name."""
+    paths = {}
+    gen = torch.Generator(device=device).manual_seed(12)
+    batch = synth_audio(TRAIN_CLIPS, CLIP_LEN, gen, device)
+    for label, (fields, fused) in OBJECTIVES.items():
+        state, step = train_setup(device, fused=fused, precision="bfloat16",
+                                  **fields)
+        config = frontier_config("bfloat16", fused, **fields)
+        adapter = adapter_from_config(config, create_tokenization_strategy(
+            config.tokenization_strategy, config.tokenization_config))
+        zero_launches()
+        _bare_steps(state, step, batch, gen,
+                    f"bare step {label}, bf16, fused_stage "
+                    f"{'on' if fused else 'off'}", card)
+        sampled = config.method != "autoencoder"
+        if sampled:
+            with torch.no_grad():
+                tokens, gains = adapter.tokenize_with_gain(batch[:2])
+                latents = state.model.encode(tokens)
+                sampler = (sample if config.method == "flow_matching"
+                           else sample_dual_time)
+                flat = sampler(state.model, config.noise_dimension, latents,
+                               n_steps=2, generator=gen)
+                audio = adapter.detokenize_flat(
+                    flat, (tokens.shape[0] // 2, tokens.shape[1]),
+                    gains=gains)
+            torch.cuda.synchronize()
+            if not torch.isfinite(audio).all():
+                raise AssertionError(f"{label}: non-finite samples")
+        launches = read_launches()
+        print(f"objective {label} launches ({OBJ_WARMUP + OBJ_STEPS} steps"
+              f"{', one 2-step sampling' if sampled else ''}): {launches}",
+              flush=True)
+        wanted = ["mdct_cuda"] + (["imdct_cuda"] if sampled else [])
+        if fused:
+            wanted += list(stage_cuda.launches)
+        for name in wanted:
+            if launches[name] == 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{label} path")
+        paths[f"objective_{label}"] = launches
+        del state, step
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _loss_and_grads(state, objective, x, draws, whole_loss: bool):
+    """The objective's loss and its flattened gradient on ``x`` with the
+    given draws; the whole loss checkpointed when asked (``tpu.remat``)."""
+    def loss_fn():
+        return objective.loss(state.model, x, **draws)[0]
+
+    loss = (torch.utils.checkpoint.checkpoint(loss_fn, use_reentrant=False)
+            if whole_loss else loss_fn())
+    grads = torch.autograd.grad(loss, state.params)
+    return loss.detach().cpu(), torch.cat([g.reshape(-1).cpu()
+                                           for g in grads])
+
+
+def _small_batch(device: torch.device, config, gen: torch.Generator):
+    """One 4096-sample clip's flat tokens for ``config``."""
+    adapter = adapter_from_config(config, create_tokenization_strategy(
+        config.tokenization_strategy, config.tokenization_config))
+    with torch.no_grad():
+        return adapter.tokenize(synth_audio(1, 4096, gen,
+                                            torch.device("cpu"))).to(device)
+
+
+def check_objectives_against_cpu(device: torch.device) -> None:
+    """Each objective of ``OBJECTIVES`` in float32 at full width on one
+    4096-sample clip: its loss and every gradient on the card against the
+    same weights and draws on the CPU (plain versions); loss rtol 1e-4,
+    gradient rel_l2 <= ``TRAIN_REL_L2``."""
+    for label, (fields, fused) in OBJECTIVES.items():
+        config = frontier_config("float32", fused, **fields)
+        objective = create_loss_strategy(config)
+        gen = torch.Generator().manual_seed(13)
+        x = _small_batch(torch.device("cpu"), config, gen)
+        out = []
+        for where in ("cpu", device):
+            state, _ = train_setup(torch.device(where), fused=fused,
+                                   precision="float32", **fields)
+            if not out:
+                draws = objective.draw(state.model, x, gen)
+            out.append(_loss_and_grads(
+                state, objective, x.to(where),
+                {k: v.to(where) for k, v in draws.items()}, False))
+            del state
+        (lc, gc), (lg, gg) = out
+        rel_l2 = ((gg - gc).norm() / gc.norm()).item()
+        print(f"float32 {label}, card vs CPU on one 4096-sample clip "
+              f"({x.shape[0]} rows): loss {lg.item():.8f} vs "
+              f"{lc.item():.8f}, gradient rel_l2 {rel_l2:.3e} (loss rtol "
+              f"1e-4, rel_l2 <= {TRAIN_REL_L2})", flush=True)
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=0)
+        if not rel_l2 <= TRAIN_REL_L2:
+            raise AssertionError(f"{label} card vs CPU: rel_l2 {rel_l2}")
+    torch.cuda.empty_cache()
+
+
+def remat_path(device: torch.device, card: str) -> dict:
+    """The bare iMF step (bf16, full width, frontier-v2's batch) without
+    remat, with ``architecture_options.remat`` under ``dots_saveable`` (the
+    elementwise segments recomputed) and under policy None (each stage
+    recomputed whole) and with ``tpu.remat``, and the ``fused_stage`` step
+    without remat: step ms, peak memory and device time of each; then the
+    float32 gradients of each unfused setting at one 4096-sample clip, which
+    must agree with no remat's (rel_l2 <= ``TRAIN_REL_L2``). Returns the
+    launches by path name."""
+    paths = {}
+    gen = torch.Generator(device=device).manual_seed(14)
+    batch = synth_audio(TRAIN_CLIPS, CLIP_LEN, gen, device)
+    for label, (options, tpu_remat, fused) in REMAT.items():
+        state, step = train_setup(device, fused=fused, precision="bfloat16",
+                                  options=options, remat=tpu_remat)
+        zero_launches()
+        _bare_steps(state, step, batch, gen, f"bare iMF step, remat {label}",
+                    card)
+        paths[f"remat_{label}"] = read_launches()
+        for name in ("mdct_cuda", *(stage_cuda.launches if fused else ())):
+            if paths[f"remat_{label}"][name] == 0:
+                raise AssertionError(f"{name} was not launched with remat "
+                                     f"{label}")
+        # device time apart from the host's, which moves between calls
+        profile(f"one bf16 iMF step, remat {label}",
+                lambda: step(state, batch, generator=gen), top=0)
+        del state, step
+        torch.cuda.empty_cache()
+    config = frontier_config("float32", False)
+    objective = create_loss_strategy(config)
+    gen = torch.Generator().manual_seed(15)
+    x = _small_batch(device, config, gen)
+    grads = {}
+    for label, (options, tpu_remat, fused) in REMAT.items():
+        if fused:
+            continue
+        state, _ = train_setup(device, fused=False, precision="float32",
+                               options=options)
+        # the same perturbation in each setting, so that the blocks' layer
+        # scales and GRN parameters (zero or 1e-6 at init) carry gradient
+        nudge = torch.Generator().manual_seed(16)
+        with torch.no_grad():
+            for param in state.params:
+                param.add_(0.02 * torch.randn(param.shape, generator=nudge)
+                           .to(device))
+        if not grads:
+            draws = objective.draw(state.model, x.cpu(), gen)
+            draws = {k: v.to(device) for k, v in draws.items()}
+        grads[label] = _loss_and_grads(state, objective, x, draws, tpu_remat)
+        del state
+    (l0, g0), *others = grads.values()
+    for label, (loss, g) in zip(list(grads)[1:], others):
+        rel_l2 = ((g - g0).norm() / g0.norm()).item()
+        print(f"float32 iMF gradients, remat {label} vs none (one 4096-sample "
+              f"clip): loss {loss.item():.8f} vs {l0.item():.8f}, rel_l2 "
+              f"{rel_l2:.3e} (<= {TRAIN_REL_L2})", flush=True)
+        torch.testing.assert_close(loss, l0, rtol=1e-5, atol=0)
+        if not rel_l2 <= TRAIN_REL_L2:
+            raise AssertionError(f"remat {label}: gradient rel_l2 {rel_l2}")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def qat_trainer_path(device: torch.device, card: str, frontier: Path,
+                     scratch: Path) -> dict:
+    """Chain stage 2c at full width: the trainer phase's newest checkpoint
+    (step 48) and its metadata copied into a fresh workdir, then ``python
+    -m meanflow_audio_codec_torch.train --config configs/frontier_v2_qat.json
+    --resume`` through ``main`` for 2 chunks of 16 steps (STE through the
+    ECSQ 0.5 grid, the config's remat with ``dots_saveable``, the device pool
+    cut to 64 clips), sampling at the end; then the run served from its
+    workdir, a 10 s clip's latents through the ECSQ 0.5 byte path. Returns
+    the launch counts."""
+    from meanflow_audio_codec_torch.ops import latent_quant
+
+    workdir = scratch / "qat"
+    (workdir / "checkpoints").mkdir(parents=True)
+    for name in ("step_00048.msgpack", "step_00048.metadata.json"):
+        (workdir / "checkpoints" / name).write_bytes(
+            (frontier / "checkpoints" / name).read_bytes())
+    config = load_config(QAT_CONFIG)
+    if (config.qat_mode, config.qat_step_frac) != ("ste", 0.5) or not (
+            config.architecture_options.get("remat")):
+        raise AssertionError(f"{QAT_CONFIG.name}: not the STE ECSQ 0.5 QAT "
+                             "config with remat")
+    args = ["--config", str(QAT_CONFIG), "--workdir", str(workdir),
+            "--resume", "--n-steps", "80", "--steps-per-call", "16",
+            "--checkpoint-step", "16", "--max-checkpoints-to-keep", "2",
+            "--device-pool-clips", "64"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    if train_cli.main(args) != 0:
+        raise AssertionError("QAT train main failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    steps = [r for r in records if "event" not in r]
+    if [r["step"] for r in steps] != list(range(48, 80)):
+        raise AssertionError(f"QAT log steps {[r['step'] for r in steps]}")
+    bad = [r["step"] for r in steps
+           if not (math.isfinite(r["loss"]) and r["update_ok"] is True)]
+    if bad:
+        raise AssertionError(f"QAT steps {bad}: non-finite or rejected")
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 16)]
+    print(f"[{card}] QAT trainer (frontier_v2_qat.json, resumed from the "
+          f"trainer phase's step 48, 2 chunks of 16): chunk time per step "
+          f"{chunk_ms[0]:.3f} / {chunk_ms[1]:.3f} ms (the first includes the "
+          f"start), peak memory {peak_gb:.3f} GB, wall {wall:.1f} s; "
+          f"update_ok on every step (32 of 32), last loss "
+          f"{steps[-1]['loss']:.6f}", flush=True)
+    print(f"QAT trainer path launches: {launches}", flush=True)
+    if launches["mdct_cuda"] < 32 or launches["imdct_cuda"] < 1:
+        raise AssertionError("the QAT trainer did not run the MDCT on every "
+                             "step and the IMDCT in its sampling")
+
+    codec = AudioCodec.from_workdir(workdir)
+    clip = synth_audio(1, 10 * SAMPLE_RATE,
+                       torch.Generator(device).manual_seed(16), device)
+    latents, gains = codec.encode_with_gains(clip)
+    data = codec.encode_bytes(clip, step_frac=0.5)
+    stream = latent_quant.unpack_bitstream(data).to(device)
+    restored = latent_quant.dequantize_latents(stream)
+    err = (restored - latents.float()).abs()
+    slack = (0.5 * stream.scale + 1e-5 * latents.float().abs().max())
+    recon = codec.decode_bytes(data,
+                               generator=torch.Generator(device).manual_seed(4))
+    window, hop = codec.adapter.strategy.config.window_size, codec._hop
+    nf = num_frames_for_length(clip.shape[1], window, hop)
+    print(f"QAT run served: 10 s clip, {len(data)} bytes "
+          f"({len(data) * 8 / 10 / 1000:.1f} kbps, ECSQ step_frac 0.5, "
+          f"{latent_quant.describe_bitstream(data)['coding']}); latents "
+          f"from bytes within half a step of the encoder's (max error "
+          f"{err.max().item():.4e}); decode {tuple(recon.shape)}", flush=True)
+    if not bool((err <= slack).all()):
+        raise AssertionError("QAT run: latents from bytes off by more than "
+                             "half a quantizer step")
+    if (tuple(recon.shape) != (1, (nf - 1) * hop + 2 * window, 2)
+            or not torch.isfinite(recon).all()):
+        raise AssertionError(f"QAT run decode: {tuple(recon.shape)}")
+    return launches
+
+
 def _wall_ms(fn, repeats: int) -> tuple[float, object]:
     """Median host milliseconds of ``fn`` ended by a synchronise, and its
     last result."""
@@ -1220,9 +1596,9 @@ def streaming_path(device: torch.device, card: str, codec: AudioCodec):
     return launches
 
 
-def profile(label: str, fn) -> None:
-    """Device time by kernel for one call of ``fn``, and the device's busy
-    share of its wall time."""
+def profile(label: str, fn, top: int = 15) -> None:
+    """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
+    and the device's busy share of its wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1244,7 +1620,7 @@ def profile(label: str, fn) -> None:
     print(f"profile of {label}: {len(kernels)} kernel names, device busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall under the profiler "
           f"({100 * busy_ms / wall_ms:.1f}% busy)", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}% x{e.count:<4d} "
               f"{e.key[:100]}", flush=True)
@@ -1327,6 +1703,10 @@ def main() -> int:
             device, card, workdir, ema, Path(tmp))
         del ema
         lap("codec")
+        paths["qat_trainer"] = qat_trainer_path(device, card, workdir,
+                                                Path(tmp))
+        torch.cuda.empty_cache()
+        lap("QAT trainer")
     paths["streaming"] = streaming_path(device, card, served)
     del served
     torch.cuda.empty_cache()
@@ -1334,9 +1714,14 @@ def main() -> int:
     chunk_probe(device, bare)
     torch.cuda.empty_cache()
     lap("chunk probe")
+    paths.update(objectives_path(device, card))
+    lap("objectives")
+    paths.update(remat_path(device, card))
+    lap("remat")
     check_fused_against_plain(device)
     check_against_cpu(device)
     check_train_against_cpu(device)
+    check_objectives_against_cpu(device)
     profile("one round trip, 4 clips x 32768",
             lambda: codec.roundtrip(
                 requests["4 clips x 32768"],

@@ -5,7 +5,7 @@ validates and migrates every field. The port reads what the codec round trip
 needs (``model.*`` with ``architecture_options``, ``dataset.dataset``,
 ``dataset.tokenization_strategy``, ``dataset.tokenization_config``,
 ``tpu.precision``), what the train step needs (the optimiser's ``base.*``,
-``training.ema_decay``, the objective's ``method.*`` and
+``training.ema_decay``, the objective's ``method.*``, ``tpu.remat`` and
 ``tpu.skip_nonfinite_updates``) and what the trainer needs (``base.seed``,
 ``dataset.data_dir``/``resample_audio``, the run's ``training.*`` and
 ``tpu.steps_per_call``). An absent field takes the JAX package's default;
@@ -45,9 +45,10 @@ _SECTIONS = {
                "time_sampling_mean", "time_sampling_std",
                "time_sampling_data_proportion", "flow_ratio",
                "time_sampling_full_proportion", "use_weighted_loss",
-               "use_stop_gradient", "loss_weighting", "qat_mode",
-               "qat_step_frac", "qat_bits"),
-    "tpu": ("precision", "skip_nonfinite_updates", "steps_per_call"),
+               "use_stop_gradient", "loss_weighting", "gamma", "c",
+               "qat_mode", "qat_step_frac", "qat_bits"),
+    "tpu": ("precision", "remat", "skip_nonfinite_updates",
+            "steps_per_call"),
 }
 
 
@@ -106,11 +107,16 @@ class CodecConfig:
     use_weighted_loss: bool | None = None
     use_stop_gradient: bool | None = None
     loss_weighting: str | None = None
+    #: mean flow's adaptive weight sg(1/(mse + c)^(1 - gamma))
+    gamma: float | None = None
+    c: float | None = None
     qat_mode: str | None = None
     qat_step_frac: float | None = None
     qat_bits: int | None = None
-    # tpu.*: drop updates whose loss, gradient norm or parameters are not
-    # finite; train steps per call of the step function
+    # tpu.*: recompute the whole loss in the backward pass; drop updates
+    # whose loss, gradient norm or parameters are not finite; train steps
+    # per call of the step function
+    remat: bool = False
     skip_nonfinite_updates: bool = False
     steps_per_call: int = 1
     #: the v2 dict the config was read from (sections and fields the port

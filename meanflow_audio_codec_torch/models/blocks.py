@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from meanflow_audio_codec_torch.models.remat import remat
 from meanflow_audio_codec_torch.ops.stage import (
     fused_gelu_grn,
     fused_ln_film,
@@ -131,14 +132,17 @@ class ConvNeXtBlock(nn.Module):
     The 3x3 conv is a full convolution (all input channels to each output
     channel), as in the JAX package. ``fused_stage=True`` runs the LN after
     the 3x3 conv and the GELU + GRN through the fused ops.
+    ``remat_segments=True`` recomputes the LN and the GELU + GRN in the
+    backward pass and keeps the products' outputs (``models/remat.py``).
     """
 
     def __init__(self, dim: int, use_grn: bool = True,
                  layer_scale_init_value: float = 1e-6,
-                 fused_stage: bool = False,
+                 fused_stage: bool = False, remat_segments: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fused_stage = fused_stage
+        self.remat_segments = remat_segments
         self.conv = Conv2d(dim, dim, 3, compute_dtype=compute_dtype)
         self.expand = Dense(dim, 2 * dim, compute_dtype=compute_dtype)
         self.grn = (GlobalResponseNormalization(2 * dim, fused_gelu=fused_stage)
@@ -148,19 +152,21 @@ class ConvNeXtBlock(nn.Module):
             nn.Parameter(torch.full((dim,), layer_scale_init_value))
             if layer_scale_init_value > 0 else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv(x)
+    def _norm(self, h: torch.Tensor) -> torch.Tensor:
         if self.fused_stage:
-            h = fused_ln_norm(_as_rows(h)).reshape(h.shape)
-        else:
-            h = adaln_norm(h)
-        h = self.expand(h)
+            return fused_ln_norm(_as_rows(h)).reshape(h.shape)
+        return adaln_norm(h)
+
+    def _activation(self, h: torch.Tensor) -> torch.Tensor:
         if self.fused_stage and self.grn is not None:
-            h = self.grn(h)  # the fused GRN applies the GELU itself
-        else:
-            h = gelu(h)
-            if self.grn is not None:
-                h = self.grn(h)
+            return self.grn(h)  # the fused GRN applies the GELU itself
+        h = gelu(h)
+        return self.grn(h) if self.grn is not None else h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        segment = remat if self.remat_segments else (lambda fn, *a: fn(*a))
+        h = segment(self._norm, self.conv(x))
+        h = segment(self._activation, self.expand(h))
         h = self.contract(h)
         if self.layer_scale is not None:
             h = h * self.layer_scale.to(h.dtype)

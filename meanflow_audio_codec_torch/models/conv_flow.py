@@ -4,7 +4,9 @@ Counterpart of ``meanflow_audio_codec_tpu/models/conv_flow.py``: each
 decoder stage lifts the flat features through a Dense bottleneck onto an
 ``[B, S, S, C]`` grid, FiLM-modulates it on the condition, runs a ConvNeXt
 block and projects back with a 1/num_blocks residual. Latents enter through
-the condition vector.
+the condition vector. ``remat`` recomputes each stage's activations in the
+backward pass: the elementwise segments only under ``dots_saveable``, the
+whole stage under policy None (``models/remat.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ from meanflow_audio_codec_torch.models.blocks import (
     adaln_norm,
     gelu,
 )
+from meanflow_audio_codec_torch.models.remat import (
+    SEGMENT_POLICIES,
+    check_policy,
+    remat,
+)
 from meanflow_audio_codec_torch.ops.embeddings import dual_time_embedding
 
 
@@ -33,17 +40,22 @@ class ConvStage(nn.Module):
     ``lift_channels`` c0 factorises the lift into a thin [S, S, c0] Dense
     output and a 1x1 conv c0 -> C (default: Dense straight to C channels).
     ``fused_stage`` runs the LN + FiLM and the block's normalisation segments
-    through the fused stage ops (``ops/stage.py``).
+    through the fused stage ops (``ops/stage.py``). ``remat_segments``
+    recomputes the LN + FiLM and the block's elementwise segments in the
+    backward pass and keeps the products' outputs (``dots_saveable``; the
+    FiLM's small condition projection, [B, 2C], is recomputed with its
+    segment).
     """
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
                  num_blocks: int, use_grn: bool = True,
                  bottleneck_dim: int = 128, channels: int | None = None,
                  spatial: int | None = None, lift_channels: int | None = None,
-                 fused_stage: bool = False,
+                 fused_stage: bool = False, remat_segments: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_blocks = num_blocks
+        self.remat_segments = remat_segments
         self.spatial = (spatial if spatial is not None
                         else math.isqrt(noise_dimension))
         channels = (channels if channels is not None
@@ -61,7 +73,8 @@ class ConvStage(nn.Module):
         self.film = FiLM(condition_dimension, channels, fuse_norm=fused_stage,
                          **dt)
         self.block = ConvNeXtBlock(channels, use_grn=use_grn,
-                                   fused_stage=fused_stage, **dt)
+                                   fused_stage=fused_stage,
+                                   remat_segments=remat_segments, **dt)
         self.unlift_conv = (Dense(channels, lift_channels, **dt)
                             if lift_channels is not None else None)
         self.bottleneck_out = Dense(
@@ -74,14 +87,19 @@ class ConvStage(nn.Module):
                                  self.grid_channels)
         if self.lift_conv is not None:
             h = self.lift_conv(h)
-        if not self.fused_stage:
-            h = adaln_norm(h)
-        h = self.film(h, condition)  # the fused FiLM normalises itself
+        segment = remat if self.remat_segments else (lambda fn, *a: fn(*a))
+        h = segment(self._norm_film, h, condition)
         h = self.block(h)
         if self.unlift_conv is not None:
             h = self.unlift_conv(h)
         h = gelu(self.bottleneck_out(h.reshape(x.shape[0], -1)))
         return self.out(h) / self.num_blocks + x
+
+    def _norm_film(self, h: torch.Tensor,
+                   condition: torch.Tensor) -> torch.Tensor:
+        if not self.fused_stage:  # the fused FiLM normalises itself
+            h = adaln_norm(h)
+        return self.film(h, condition)
 
 
 class ConvEncoder(nn.Module):
@@ -125,25 +143,37 @@ class ConditionalConvFlow(nn.Module):
     ``forward(x, time, latents)`` with ``time`` the ``[B, 2]`` (t, h) pair;
     ``latents=None`` equals zero latents (``latent_proj`` has no bias).
     ``fused_stage`` goes to every decoder stage; the encoder has no fused
-    path.
+    path. ``remat`` recomputes each decoder stage in the backward pass, as
+    the JAX package's ``nn.remat(ConvStage, policy=...)``: under
+    ``dots_saveable`` / ``checkpoint_dots`` each stage checkpoints its
+    elementwise segments and keeps the products' outputs, under policy None
+    / ``nothing_saveable`` the stage is recomputed whole
+    (``models/remat.py``).
     """
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
                  num_blocks: int, latent_dimension: int, use_grn: bool = True,
                  channels: int | None = None, bottleneck_dim: int = 128,
                  spatial: int | None = None, lift_channels: int | None = None,
-                 fused_stage: bool = False,
+                 fused_stage: bool = False, remat: bool = False,
+                 remat_policy: str | None = None,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_policy(remat_policy)
         self.noise_dimension = noise_dimension
         self.condition_dimension = condition_dimension
+        self.latent_dimension = latent_dimension
+        self.remat = remat
+        self.remat_policy = remat_policy
+        segments = remat and remat_policy in SEGMENT_POLICIES
+        self.remat_stages = remat and not segments
         self.compute_dtype = compute_dtype
         self.stages = nn.ModuleList([
             ConvStage(noise_dimension, condition_dimension, num_blocks,
                       use_grn=use_grn, bottleneck_dim=bottleneck_dim,
                       channels=channels, spatial=spatial,
                       lift_channels=lift_channels, fused_stage=fused_stage,
-                      compute_dtype=compute_dtype)
+                      remat_segments=segments, compute_dtype=compute_dtype)
             for _ in range(num_blocks)
         ])
         self.latent_proj = Dense(latent_dimension, condition_dimension,
@@ -163,5 +193,5 @@ class ConditionalConvFlow(nn.Module):
             cond = cond + self.latent_proj(latents.reshape(latents.shape[0], -1))
         h = x.to(self.compute_dtype)
         for stage in self.stages:
-            h = stage(h, cond)
+            h = remat(stage, h, cond) if self.remat_stages else stage(h, cond)
         return h

@@ -1,6 +1,6 @@
 """Model factory; counterpart of ``meanflow_audio_codec_tpu/models/factories.py``
 for the ``convnet`` family (the only one the port has so far), with its
-``fused_stage`` option."""
+``fused_stage``, ``remat`` and ``remat_policy`` options."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from torch import nn
 from meanflow_audio_codec_torch.configs import CodecConfig
 from meanflow_audio_codec_torch.models.blocks import Conv2d, Dense
 from meanflow_audio_codec_torch.models.conv_flow import ConditionalConvFlow
+from meanflow_audio_codec_torch.ops.losses import attach_learned_weighting
 
 PRECISION_DTYPES = {
     "float32": torch.float32,
@@ -19,8 +20,6 @@ PRECISION_DTYPES = {
     "mixed": torch.bfloat16,  # bf16 compute, f32 params
 }
 
-#: options that only set the memory policy of the training backward pass
-_TRAINING_ONLY_OPTIONS = ("remat", "remat_policy")
 #: options whose code paths the port does not have yet
 _UNPORTED_OPTIONS = ("quantized",)
 
@@ -51,14 +50,14 @@ def create_flow_model(config: CodecConfig,
                       ) -> ConditionalConvFlow:
     """Build the flow model the config names, computing in the dtype of its
     ``precision``, with weights drawn from ``generator`` (CPU); move it to the
-    device afterwards."""
+    device afterwards. With ``loss_weighting: "learned"`` the model also
+    holds the weighting's polynomial, which the JAX trainer and
+    ``load_flow_state`` merge into the param tree."""
     architecture = config.architecture or "mlp"
     if architecture != "convnet":
         raise NotImplementedError(
             f"architecture {architecture!r} is not ported yet (only 'convnet')")
     options = dict(config.architecture_options)
-    for name in _TRAINING_ONLY_OPTIONS:
-        options.pop(name, None)
     for name in _UNPORTED_OPTIONS:
         if options.pop(name, False):
             raise NotImplementedError(f"architecture option {name!r} is not "
@@ -72,4 +71,6 @@ def create_flow_model(config: CodecConfig,
         compute_dtype=compute_dtype_for(config),
         **options,
     )
+    if (config.loss_weighting or "uniform") == "learned":
+        attach_learned_weighting(model)
     return init_weights(model, generator)

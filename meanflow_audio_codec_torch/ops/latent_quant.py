@@ -1,14 +1,15 @@
 """Latent bitstream: scalar-quantized codec latents and the MACB format.
 
-Counterpart of ``meanflow_audio_codec_tpu/ops/latent_quant.py`` (everything
-but ``LatentQAT``), with the same container bytes, so a stream either
-package writes reads in the other:
+Counterpart of ``meanflow_audio_codec_tpu/ops/latent_quant.py``, with the
+same container bytes, so a stream either package writes reads in the other:
 
 - **MACB v1** (:func:`quantize_latents`): symmetric per-frame codes of 4, 8
   or 16 bits, scale = per-frame peak / qmax;
 - **MACB v2** (:func:`quantize_latents_ecsq`): a per-clip per-dim mean
   (8-bit codes + one scale per clip) subtracted, then a uniform grid of
   ``step_frac`` x the per-frame residual standard deviation, int8 codes;
+- :class:`LatentQAT` trains through either grid (straight-through or
+  uniform noise of one step);
 - 4- and 8-bit codes are rANS-coded (``ops/entropy.py``) when that is
   smaller; a flag bit carries 8-bit log-domain per-frame gains of
   gain-normalised codecs.
@@ -129,6 +130,77 @@ def dequantize_latents(bitstream: LatentBitstream) -> torch.Tensor:
     if bitstream.mean_codes is not None:
         out = out + bitstream.mean_codes.float() * bitstream.mean_scale
     return out
+
+
+@dataclass(frozen=True)
+class LatentQAT:
+    """Quantization-aware training transform for codec latents, applied to
+    the encoder output inside the training objective.
+
+    ``mode="ste"``: the forward is exactly the eval round trip
+    (:func:`quantize_latents_ecsq` / :func:`quantize_latents` ->
+    :func:`dequantize_latents`), the backward the identity.
+    ``mode="noise"``: ``z + u * sg(step(z))`` with ``u ~ U(-0.5, 0.5)`` of
+    the latents' shape, one quantizer step per frame. The JAX package draws
+    ``u`` from ``fold_in(key, 0x9A7)``; here it is passed in or drawn by
+    :meth:`draw` from a ``torch.Generator``.
+
+    ``step_frac`` selects the ECSQ grid (MACB v2), ``bits`` the fixed-width
+    grid (MACB v1); exactly one must be set.
+    """
+
+    mode: str = "ste"
+    step_frac: float | None = None
+    bits: int | None = None
+
+    def __post_init__(self):
+        if (self.step_frac is None) == (self.bits is None):
+            raise ValueError("set exactly one of step_frac (ECSQ) or "
+                             "bits (fixed-width)")
+        if self.mode not in ("ste", "noise"):
+            raise ValueError(f"mode must be 'ste' or 'noise', got {self.mode!r}")
+
+    def _roundtrip(self, z: torch.Tensor) -> torch.Tensor:
+        if self.step_frac is not None:
+            return dequantize_latents(
+                quantize_latents_ecsq(z, step_frac=self.step_frac))
+        return dequantize_latents(quantize_latents(z, bits=self.bits))
+
+    def _step(self, z: torch.Tensor) -> torch.Tensor:
+        """One quantizer step per frame (the uniform noise's amplitude)."""
+        if self.step_frac is not None:
+            mean = z.mean(dim=-2, keepdim=True)
+            return ((z - mean).std(dim=-1, keepdim=True, correction=0)
+                    .clamp_min(1e-12) * self.step_frac)
+        qmax = float(2 ** (self.bits - 1) - 1)
+        return z.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / qmax
+
+    def draw(self, shape, generator: torch.Generator | None = None,
+             device: torch.device | str | None = None) -> torch.Tensor | None:
+        """The uniform draw ``u`` of the noise mode (None for "ste")."""
+        if self.mode != "noise":
+            return None
+        return torch.rand(shape, generator=generator, dtype=torch.float32,
+                          device=device) - 0.5
+
+    def __call__(self, latents: torch.Tensor,
+                 noise: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """The transformed latents, in ``latents``' dtype; ``noise`` is the
+        noise mode's ``u`` (drawn from ``generator`` when absent)."""
+        z = latents.float()
+        with torch.no_grad():
+            if self.mode == "ste":
+                shift = self._roundtrip(z) - z
+            else:
+                if noise is None:
+                    noise = self.draw(z.shape, generator, z.device)
+                step = self._step(z)
+        if self.mode == "ste":
+            out = z + shift
+        else:
+            out = z + noise.to(z.device, torch.float32) * step
+        return out.to(latents.dtype)
 
 
 def bitstream_kbps(latent_dim: int, frames_per_second: float,

@@ -2,11 +2,22 @@
 
 Every reduction runs in float32 whatever the input dtype, so bf16
 activations do not degrade the loss statistics.
+
+``loss_weighting='learned'`` trains a log-variance polynomial jointly with
+the model: :func:`attach_learned_weighting` gives the model a
+``loss_weighting`` submodule whose ``poly`` parameter then sits in the train
+state's flat buffers like every other parameter, and in the checkpoint at
+``params["loss_weighting"]["poly"]``, where the JAX package keeps it.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
+
+#: the model attribute, and the top-level key of the Flax param tree, that
+#: holds the learned weighting's parameters
+LEARNED_WEIGHT_KEY = "loss_weighting"
 
 
 def _per_example_sq(delta: torch.Tensor) -> torch.Tensor:
@@ -35,6 +46,16 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (delta * delta).mean()
 
 
+def adaptive_weighted_per_example(err: torch.Tensor, gamma: float = 0.5,
+                                  c: float = 1e-3) -> torch.Tensor:
+    """Mean flow's adaptive terms ``sg(1/(e+c)^(1-gamma)) * e``, with ``e``
+    the per-example *mean* squared error."""
+    err = err.float()
+    delta_sq = (err * err).mean(dim=tuple(range(1, err.ndim)))
+    w = (1.0 / (delta_sq + c) ** (1.0 - gamma)).detach()
+    return w * delta_sq
+
+
 def time_dependent_weight(t: torch.Tensor, c: float = 1e-2) -> torch.Tensor:
     """``w(t) = 1/(t^2 + c)`` normalised to batch mean 1."""
     t = t.float().reshape(-1)
@@ -42,17 +63,52 @@ def time_dependent_weight(t: torch.Tensor, c: float = 1e-2) -> torch.Tensor:
     return w / w.mean()
 
 
+class LearnedWeighting(nn.Module):
+    """The log-variance polynomial ``s(t) = a0 + a1 t + a2 t^2``, zero at
+    init (w(t) = 1, regulariser 0)."""
+
+    def __init__(self):
+        super().__init__()
+        self.poly = nn.Parameter(torch.zeros(3, dtype=torch.float32))
+
+
+def attach_learned_weighting(model: nn.Module) -> nn.Module:
+    """Give ``model`` the learned weighting's parameters (the JAX trainer
+    merges ``init_learned_weight_params()`` into its param tree)."""
+    setattr(model, LEARNED_WEIGHT_KEY, LearnedWeighting())
+    return model
+
+
+def learned_weight_terms(poly: torch.Tensor, t: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kendall-style uncertainty weighting: ``(w(t), regulariser)`` with
+    ``w(t) = exp(-s(t))`` and ``reg = mean(s(t))``."""
+    poly = poly.float()
+    t = t.float().reshape(-1)
+    s = poly[0] + poly[1] * t + poly[2] * t * t
+    return torch.exp(-s), s.mean()
+
+
 def apply_loss_weighting(per_example: torch.Tensor, t: torch.Tensor,
-                         weighting: str | None) -> torch.Tensor:
+                         weighting: str | None,
+                         model: nn.Module | None = None) -> torch.Tensor:
     """Reduce per-example terms under the configured time weighting:
-    ``uniform`` (plain mean) or ``time_dependent``."""
+    ``uniform`` (plain mean), ``time_dependent`` or ``learned`` (the
+    polynomial of ``model``'s ``loss_weighting`` submodule, see
+    :func:`attach_learned_weighting`)."""
     if weighting in (None, "uniform"):
         return per_example.mean()
     if weighting == "time_dependent":
         return (time_dependent_weight(t) * per_example).mean()
     if weighting == "learned":
-        raise NotImplementedError(
-            "loss_weighting='learned' is not ported yet")
+        learned = getattr(model, LEARNED_WEIGHT_KEY, None)
+        if learned is None:
+            raise ValueError(
+                "loss_weighting='learned' requires learned-weight params: "
+                "attach_learned_weighting(model) at init (the trainer does "
+                "this)")
+        w, reg = learned_weight_terms(learned.poly, t)
+        return (w * per_example).mean() + reg
     raise ValueError(f"Unknown loss_weighting: {weighting}. Must be one of: "
                      "'uniform', 'time_dependent', 'learned'")
 

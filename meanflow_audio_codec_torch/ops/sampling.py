@@ -1,4 +1,5 @@
-"""Mean-flow interval sampler; counterpart of ``sample_dual_time`` in
+"""Samplers; counterparts of ``sample`` (Heun ODE integration, flow
+matching) and ``sample_dual_time`` (mean-flow intervals) in
 ``meanflow_audio_codec_tpu/ops/sampling.py``."""
 
 from __future__ import annotations
@@ -17,6 +18,40 @@ def _velocity(model, x: torch.Tensor, time: torch.Tensor,
                torch.cat([latents, torch.zeros_like(latents)]))
     v_cond, v_uncond = v2[:batch], v2[batch:]
     return guidance_scale * v_cond + (1.0 - guidance_scale) * v_uncond
+
+
+@torch.no_grad()
+def sample(model, noise_dimension: int, latents: torch.Tensor,
+           n_steps: int = 100, guidance_scale: float = 1.0,
+           noise: torch.Tensor | None = None,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Heun (RK2) integration of the instantaneous velocity from t=1 to 0.
+
+    The grid is the JAX package's: ``ts = linspace(1, 0, n_steps)`` with
+    ``dt = 1/n_steps``, each step evaluating at t and at t - dt (so with
+    more than one step the last evaluation is at t = -dt). ``noise``
+    (``[B, noise_dimension]``) fixes the start point; otherwise it is drawn
+    from ``generator`` on the latents' device. The state stays float32.
+    """
+    if latents is None:
+        raise ValueError("latents must be provided for conditional sampling")
+    batch, device = latents.shape[0], latents.device
+    if noise is None:
+        noise = torch.randn((batch, noise_dimension), generator=generator,
+                            device=device, dtype=torch.float32)
+    x = noise.to(device=device, dtype=torch.float32)
+    dt = 1.0 / n_steps
+    for t in torch.linspace(1.0, 0.0, n_steps, dtype=torch.float32,
+                            device=device):
+        t1 = t.expand(batch, 1)
+        k1 = _velocity(model, x, torch.cat([t1, torch.zeros_like(t1)], -1),
+                       latents, guidance_scale)
+        t2 = t1 - dt
+        k2 = _velocity(model, x - dt * k1.to(x.dtype),
+                       torch.cat([t2, torch.zeros_like(t2)], -1), latents,
+                       guidance_scale)
+        x = x - (dt / 2.0) * (k1 + k2).to(x.dtype)
+    return x
 
 
 @torch.no_grad()

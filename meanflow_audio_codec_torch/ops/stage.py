@@ -11,26 +11,37 @@ The plain PyTorch versions (``_ln_film_ref``, ``_ln_norm_ref``,
 statistics in float32; the hand-written CUDA kernels of ``ops/stage_cuda.py``
 (``csrc/stage.cu``) compute the same in one pass over device memory.
 
-Each public op is a ``torch.autograd.Function`` that serves the iMF objective
-(``training/objectives.py``), which needs reverse mode of a plain forward and
-forward mode (``torch.autograd.forward_ad``) of the model:
+The mean-flow objectives (``training/objectives.py``) need reverse mode of a
+plain forward, forward mode (``torch.autograd.forward_ad``) of the model and,
+without the stop-gradient, reverse mode through that forward mode. The ops
+meet all three as the JAX package's do:
 
-  * ``forward`` runs the kernel on a CUDA tensor and the plain version on a CPU
-    tensor, and keeps the statistics it emits (``mu``, ``r`` / ``gx``);
-  * ``jvp`` is the two-pass tangent rule of the JAX package, written in torch,
-    reusing those statistics: the kernel does not run a second time;
-  * ``backward`` is autograd through the plain version on the saved inputs,
-    as the JAX package's VJP is ``jax.vjp`` of its jnp reference.
+  * a stats function (``_LnFilmStats``, ...; an ``autograd.Function``) runs
+    the kernel on a CUDA tensor and the plain version on a CPU tensor, and
+    returns the output with its statistics (``mu``, ``r`` / ``gx``); its
+    backward is autograd through the plain version on the saved inputs, for
+    the output and the statistics alike (JAX's ``custom_vjp`` stats
+    functions, whose backward is ``jax.vjp`` of the jnp reference);
+  * the public op runs the stats function on the primal. When its input
+    carries a forward-mode tangent, it computes the tangent with the two-pass
+    rule of the JAX package, in torch ops on those statistics (the kernel
+    does not run a second time), and returns a dual tensor.
 
-The tangent is not differentiable: ``jvp`` runs under ``torch.no_grad()``
-(so autograd keeps none of its float32 intermediates) and reads the saved
-statistics as constants. Gradient-of-JVP (``use_stop_gradient=False``) is
-therefore not supported by these ops.
+The tangent rule runs under ``torch.no_grad()`` unless
+:func:`differentiable_tangents` is in force, so the stop-gradient objectives
+keep none of its float32 intermediates; inside it, the rule is recorded like
+any torch op, so a gradient reaches the inputs and parameters through the
+tangent and through the statistics (grad-of-JVP, JAX's ``custom_jvp`` rule
+differentiated).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from meanflow_audio_codec_torch.ops import stage_cuda
 from meanflow_audio_codec_torch.ops.stage_ref import (
@@ -42,109 +53,141 @@ from meanflow_audio_codec_torch.ops.stage_ref import (
     _ln_norm_ref,
 )
 
+_TANGENT_GRAD = contextvars.ContextVar("stage_tangent_grad", default=False)
 
-def _vjp(ctx, ref, grad_y):
-    """Cotangents of the saved inputs through the plain version's ``y``."""
+
+@contextlib.contextmanager
+def differentiable_tangents(enabled: bool = True):
+    """Record the tangent rules for reverse mode (``enabled``) or run them
+    under ``no_grad`` (the default) while the context lasts."""
+    token = _TANGENT_GRAD.set(enabled)
+    try:
+        yield
+    finally:
+        _TANGENT_GRAD.reset(token)
+
+
+def tangents_differentiable() -> bool:
+    """Whether :func:`differentiable_tangents` is in force."""
+    return _TANGENT_GRAD.get()
+
+
+def _vjp(ctx, ref, grads):
+    """Cotangents of the saved inputs through the plain version's outputs
+    (``grads`` holds one per output, None where it received none)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(needs) for t, needs
                   in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(ref(*leaves)[0], wanted, grad_y))
-    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+        pairs = [(out, g) for out, g in zip(ref(*leaves), grads)
+                 if g is not None]
+        if not pairs:
+            return (None,) * len(leaves)
+        found = iter(torch.autograd.grad([out for out, _ in pairs], wanted,
+                                         [g for _, g in pairs]))
+    return tuple(next(found) if t.requires_grad else None for t in leaves)
 
 
-class _LnFilm(torch.autograd.Function):
+class _LnFilmStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x3, scale, shift):
         x3, scale, shift = (t.contiguous() for t in (x3, scale, shift))
-        y, mu, r = stage_cuda.ln_film_cuda(x3, scale, shift)
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x3, scale, shift)
-        ctx.save_for_forward(x3, scale, mu, r)
-        return y
+        return stage_cuda.ln_film_cuda(x3, scale, shift)
 
     @staticmethod
-    @torch.no_grad()
-    def jvp(ctx, tx, ts, tb):
-        x3, scale, mu, r = ctx.saved_tensors
-        # x̂ has zero mean per row, so mean(x̂ (tx - mean tx)) = mean(x̂ tx):
-        # one reduce pass over (x, tx), one apply pass
-        r3 = r[..., None]
-        xhat = (x3.float() - mu[..., None]) * r3
-        ty = (1.0 + scale.float()[:, None, :]) * _ln_tangent(xhat, r3, tx)
-        if ts is not None:
-            ty = ty + ts.float()[:, None, :] * xhat
-        if tb is not None:
-            ty = ty + tb.float()[:, None, :]
-        return ty.to(x3.dtype)
-
-    @staticmethod
-    def backward(ctx, grad_y):
-        return _vjp(ctx, _ln_film_ref, grad_y)
+    def backward(ctx, *grads):
+        return _vjp(ctx, _ln_film_ref, grads)
 
 
-class _LnNorm(torch.autograd.Function):
+class _LnNormStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x3):
         x3 = x3.contiguous()
-        y, mu, r = stage_cuda.ln_norm_cuda(x3)
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x3)
-        ctx.save_for_forward(x3, mu, r)
-        return y
+        return stage_cuda.ln_norm_cuda(x3)
 
     @staticmethod
-    @torch.no_grad()
-    def jvp(ctx, tx):
-        x3, mu, r = ctx.saved_tensors
-        r3 = r[..., None]
-        xhat = (x3.float() - mu[..., None]) * r3
-        return _ln_tangent(xhat, r3, tx).to(x3.dtype)
+    def backward(ctx, *grads):
+        return _vjp(ctx, _ln_norm_ref, grads)
+
+
+class _GeluGrnStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, gamma, beta):
+        x3 = x3.contiguous()
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x3, gamma, beta)
+        return stage_cuda.gelu_grn_cuda(x3, gamma, beta)
 
     @staticmethod
-    def backward(ctx, grad_y):
-        return _vjp(ctx, _ln_norm_ref, grad_y)
+    def backward(ctx, *grads):
+        return _vjp(ctx, _gelu_grn_ref, grads)
 
 
 def _ln_tangent(xhat: torch.Tensor, r3: torch.Tensor,
                 tx: torch.Tensor) -> torch.Tensor:
-    """Tangent of x̂ = (x - mean x) r along ``tx``, float32."""
+    """Tangent of x̂ = (x - mean x) r along ``tx``, float32.
+
+    x̂ has zero mean per row, so mean(x̂ (tx - mean tx)) = mean(x̂ tx): one
+    reduce pass over (x, tx), one apply pass."""
     tx32 = tx.float()
     tmu = tx32.mean(dim=-1, keepdim=True)
     proj = (xhat * tx32).mean(dim=-1, keepdim=True)
     return r3 * (tx32 - tmu) - xhat * (r3 * proj)
 
 
-class _GeluGrn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x3, gamma, beta):
-        x3 = x3.contiguous()
-        y, gx = stage_cuda.gelu_grn_cuda(x3, gamma, beta)
-        ctx.save_for_backward(x3, gamma, beta)
-        ctx.save_for_forward(x3, gamma, gx)
+def _ln_film_tangent(primals, tangents, stats):
+    (x3, scale, _), (tx, ts, tb), (mu, r) = primals, tangents, stats
+    r3 = r[..., None]
+    xhat = (x3.float() - mu[..., None]) * r3
+    ty = (1.0 + scale.float()[:, None, :]) * _ln_tangent(xhat, r3, tx)
+    if ts is not None:
+        ty = ty + ts.float()[:, None, :] * xhat
+    if tb is not None:
+        ty = ty + tb.float()[:, None, :]
+    return ty
+
+
+def _ln_norm_tangent(primals, tangents, stats):
+    (x3,), (tx,), (mu, r) = primals, tangents, stats
+    r3 = r[..., None]
+    return _ln_tangent((x3.float() - mu[..., None]) * r3, r3, tx)
+
+
+def _gelu_grn_tangent(primals, tangents, stats):
+    (x3, gamma, _), (tx, tgamma, tbeta), (gx,) = primals, tangents, stats
+    x32 = x3.float()
+    # g is recomputed elementwise; the statistic gx comes from the primal
+    g = _gelu_f32(x32)
+    tg = _gelu_grad_f32(x32) * tx.float()
+    m = gx.mean(dim=-1, keepdim=True) + _GRN_MEAN_EPS
+    nx = gx / m
+    tgx = (g * tg).sum(dim=1) / gx
+    tnx = (tgx - nx * tgx.mean(dim=-1, keepdim=True)) / m
+    ty = tg * (gamma.float() + nx[:, None, :]) + g * tnx[:, None, :]
+    if tgamma is not None:
+        ty = ty + g * tgamma.float()
+    if tbeta is not None:
+        ty = ty + tbeta.float()
+    return ty
+
+
+def _apply(stats_fn, tangent_rule, *inputs):
+    """``stats_fn`` on the primals of ``inputs``; a dual output whose tangent
+    is ``tangent_rule``'s when any input carries a tangent."""
+    unpacked = [fwAD.unpack_dual(t) for t in inputs]
+    primals = [u.primal for u in unpacked]
+    tangents = [u.tangent for u in unpacked]
+    y, *stats = stats_fn.apply(*primals)
+    if all(t is None for t in tangents):
         return y
-
-    @staticmethod
-    @torch.no_grad()
-    def jvp(ctx, tx, tgamma, tbeta):
-        x3, gamma, gx = ctx.saved_tensors
-        x32 = x3.float()
-        tx32 = tx.float()
-        # g is recomputed elementwise; the statistic gx comes from the primal
-        g = _gelu_f32(x32)
-        tg = _gelu_grad_f32(x32) * tx32
-        m = gx.mean(dim=-1, keepdim=True) + _GRN_MEAN_EPS
-        nx = gx / m
-        tgx = (g * tg).sum(dim=1) / gx
-        tnx = (tgx - nx * tgx.mean(dim=-1, keepdim=True)) / m
-        ty = tg * (gamma.float() + nx[:, None, :]) + g * tnx[:, None, :]
-        if tgamma is not None:
-            ty = ty + g * tgamma.float()
-        if tbeta is not None:
-            ty = ty + tbeta.float()
-        return ty.to(x3.dtype)
-
-    @staticmethod
-    def backward(ctx, grad_y):
-        return _vjp(ctx, _gelu_grn_ref, grad_y)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and _TANGENT_GRAD.get()):
+        ty = tangent_rule(primals, tangents, stats)
+    return fwAD.make_dual(y, ty.to(y.dtype))
 
 
 def fused_ln_film(x3: torch.Tensor, scale: torch.Tensor,
@@ -155,13 +198,13 @@ def fused_ln_film(x3: torch.Tensor, scale: torch.Tensor,
     ``shift`` are [B, C], broadcast over P. Statistics in float32; the
     result in ``x3``'s dtype.
     """
-    return _LnFilm.apply(x3, scale, shift)
+    return _apply(_LnFilmStats, _ln_film_tangent, x3, scale, shift)
 
 
 def fused_ln_norm(x3: torch.Tensor) -> torch.Tensor:
     """adaLN-norm (scale- and bias-free LayerNorm over C, float32 statistics)
     of [B, P, C] in one pass."""
-    return _LnNorm.apply(x3)
+    return _apply(_LnNormStats, _ln_norm_tangent, x3)
 
 
 def fused_gelu_grn(x3: torch.Tensor, gamma: torch.Tensor,
@@ -169,4 +212,4 @@ def fused_gelu_grn(x3: torch.Tensor, gamma: torch.Tensor,
     """tanh-GELU + ConvNeXt-V2 GRN of the pre-activation ``x3`` [B, P, C] in
     one pass, with the GRN parameters ``gamma``/``beta`` [C]; float32
     accumulation, the result in ``x3``'s dtype."""
-    return _GeluGrn.apply(x3, gamma, beta)
+    return _apply(_GeluGrnStats, _gelu_grn_tangent, x3, gamma, beta)

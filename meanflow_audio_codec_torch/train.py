@@ -99,13 +99,13 @@ def main(argv: list[str] | None = None) -> int:
     if refused:
         print(f"error: {', '.join(refused)} not ported yet: the port's CLI "
               "takes --config and the flags its --help lists (ROADMAP "
-              "items 7, 9a, 10, 17)", file=sys.stderr)
+              "queue 1 item 10)", file=sys.stderr)
         return 2
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.config is None:
         print("error: provide --config (the flag-driven config is not "
-              "ported yet, ROADMAP item 10)", file=sys.stderr)
+              "ported yet, ROADMAP queue 1 item 10)", file=sys.stderr)
         return 2
     train_flow(config_from_args(args), resume=args.resume)
     return 0

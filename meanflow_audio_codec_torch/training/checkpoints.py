@@ -43,8 +43,8 @@ MIN_CHECKPOINT_BYTES = 100
 def check_format(fmt: str | None) -> None:
     if (fmt or "msgpack") != "msgpack":
         raise NotImplementedError(
-            f"checkpoint_format {fmt!r} is not ported yet (ROADMAP item 9a: "
-            "the port writes msgpack checkpoints only)")
+            f"checkpoint_format {fmt!r} is not ported yet (ROADMAP queue 1 "
+            "item 13: the port writes msgpack checkpoints only)")
 
 
 # ============================================================================

@@ -1,31 +1,46 @@
-"""The improved mean-flow (iMF) training objective.
+"""Training objectives: autoencoder, flow matching, mean flow, improved mean
+flow; counterpart of ``meanflow_audio_codec_tpu/training/objectives.py``.
 
-Counterpart of ``ImprovedMeanFlowObjective`` and ``create_loss_strategy`` in
-``meanflow_audio_codec_tpu/training/objectives.py``:
-
-    v = f(z, [t, 0], lat)                   (boundary: u(z, t, t) = v(z, t))
-    (u, du/dt) = jvp(f, (z, t, r), (v, 1, 0))
-    v_pred = u + (t - r) sg(du/dt);  L = w ||v_pred - target||^2
+  FM  : z = interp(x, e, t);  v̂ = f(z, [t,0], lat);  L = w‖v̂ - tgt‖²
+  MF  : z = (1-t)x + te (the uniform interpolant, by definition);
+        (u, du/dt) = jvp(f, (z,t,r), (e-x, 1, 0));
+        u_tgt = (e-x) - clip(t-r)·sg(du/dt);
+        L = mean(sg(1/(mse+c)^(1-γ)) · mse(u - u_tgt))
+  iMF : v = f(z, [t,0], lat)          (boundary: u(z,t,t) = v(z,t))
+        (u, du/dt) = jvp(f, (z,t,r), (v, 1, 0));
+        v_pred = u + (t-r)·sg(du/dt);  L = w‖v_pred - tgt‖²
+  AE  : lat = encode(x); x̂ = f(0, [0,0], lat);  L = ‖x̂ - x‖²
 
 The JVP is PyTorch's forward-mode AD (``torch.autograd.forward_ad``): z gets
-the tangent v and t the tangent 1, so h = t - r gets tangent 1 from the
-autodiff itself. The model signature is ``model(z, time, latents)`` with
-``time = [t, h]`` columns, and ``model.encode(x)``.
+the tangent and t the tangent 1, so h = t - r gets tangent 1 from the
+autodiff itself. With ``use_stop_gradient=False`` the gradient also flows
+through du/dt (reverse mode over the forward mode): the iMF boundary forward
+then keeps its graph, and the fused stage ops record their tangent rules
+(``ops.stage.differentiable_tangents``). The model signature is
+``model(z, time, latents)`` with ``time = [t, h]`` columns, and
+``model.encode(x)``.
 
-The flow-matching, mean-flow and autoencoder objectives and the latent QAT
-hook are not ported yet and raise ``NotImplementedError``.
+Every objective's random inputs (``noise``, ``t``, ``r``, and the latent QAT
+noise ``qat_noise``) are drawn by :meth:`Objective.draw` from a
+``torch.Generator``, or passed in (tests pass what the JAX loss drew), so a
+caller can draw them before a checkpointed loss that recomputes itself.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from meanflow_audio_codec_torch.configs import CodecConfig
+from meanflow_audio_codec_torch.ops import stage
+from meanflow_audio_codec_torch.ops.latent_quant import LatentQAT
 from meanflow_audio_codec_torch.ops.losses import (
+    adaptive_weighted_per_example,
     apply_loss_weighting,
     mse_loss,
     mse_per_example,
@@ -35,7 +50,13 @@ from meanflow_audio_codec_torch.ops.schedules import (
     LinearNoiseSchedule,
     create_noise_schedule,
 )
-from meanflow_audio_codec_torch.ops.time_sampling import MeanFlowTimeSampling
+from meanflow_audio_codec_torch.ops.time_sampling import (
+    LogitNormalTimeSampling,
+    MeanFlowTimeSampling,
+    UniformTimeSampling,
+)
+
+Losses = tuple[torch.Tensor, dict[str, torch.Tensor]]
 
 
 def _time_pair(t: torch.Tensor, h: torch.Tensor | None = None) -> torch.Tensor:
@@ -45,83 +66,198 @@ def _time_pair(t: torch.Tensor, h: torch.Tensor | None = None) -> torch.Tensor:
     return torch.cat([t, h], dim=-1)
 
 
+class Objective:
+    """Base: the draws, the QAT hook and ``loss``.
+
+    ``_times`` is how many time columns the objective draws (0, 1 for t, 2
+    for the ordered pair (t, r)); ``_noise`` whether it draws noise.
+    """
+
+    _noise = True
+    _times = 0
+    latent_qat: LatentQAT | None = None
+
+    def draw(self, model: nn.Module, x: torch.Tensor,
+             generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
+             r: torch.Tensor | None = None,
+             qat_noise: torch.Tensor | None = None) -> dict:
+        """The random inputs of :meth:`loss` on ``x`` [B, D]: those given,
+        the rest drawn from ``generator`` (noise, then times, then the QAT
+        noise)."""
+        batch, out = x.shape[0], {}
+        if self._noise:
+            out["noise"] = (noise if noise is not None else torch.randn(
+                x.shape, generator=generator, dtype=x.dtype, device=x.device))
+        if self._times == 1:
+            out["t"] = (t if t is not None else self.time_sampling.sample_time(
+                batch, generator, dtype=x.dtype, device=x.device))
+        elif self._times == 2:
+            if (t is None) != (r is None):
+                raise ValueError("pass both t and r, or neither")
+            if t is None:
+                t, r = self.time_sampling.sample_time_pair(
+                    batch, generator, dtype=x.dtype, device=x.device)
+            out["t"], out["r"] = t, r
+        qat = self.latent_qat
+        if qat is not None and qat.mode == "noise":
+            out["qat_noise"] = (qat_noise if qat_noise is not None else
+                                qat.draw((batch, model.latent_dimension),
+                                         generator, x.device))
+        return out
+
+    def _encode(self, model: nn.Module, x: torch.Tensor,
+                qat_noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Encoder latents, through the latent QAT when it is set."""
+        latents = model.encode(x)
+        if self.latent_qat is not None:
+            latents = self.latent_qat(latents, noise=qat_noise)
+        return latents
+
+    def loss(self, model: nn.Module, x: torch.Tensor,
+             generator: torch.Generator | None = None, **given) -> Losses:
+        """(loss, {"mse": ...}) for flat examples ``x`` [B, D]; ``given``
+        holds any of the draws (:meth:`draw`), the rest come from
+        ``generator``."""
+        return self._loss(model, x, **self.draw(model, x, generator, **given))
+
+    def _loss(self, model, x, **draws) -> Losses:
+        raise NotImplementedError
+
+
 @dataclass(frozen=True)
-class ImprovedMeanFlowObjective:
+class AutoencoderObjective(Objective):
+    """Deterministic reconstruction: decode(0, t=0, encode(x)) ≈ x, plain
+    mean squared error (the JAX factory always builds it unweighted)."""
+
+    latent_qat: LatentQAT | None = None
+    _noise = False
+
+    def _loss(self, model, x, qat_noise=None) -> Losses:
+        latents = self._encode(model, x, qat_noise)
+        time = _time_pair(torch.zeros((x.shape[0], 1), dtype=x.dtype,
+                                      device=x.device))
+        recon = model(torch.zeros_like(x), time, latents)
+        loss = mse_loss(recon, x)
+        return loss, {"mse": loss.detach()}
+
+
+@dataclass(frozen=True)
+class FlowMatchingObjective(Objective):
+    """Conditional flow matching on the schedule's interpolant and target."""
+
+    noise_schedule: Any = field(default_factory=LinearNoiseSchedule)
+    time_sampling: Any = field(default_factory=LogitNormalTimeSampling)
+    use_weighted_loss: bool = True
+    #: 'uniform' | 'time_dependent' | 'learned' (see ops.losses)
+    loss_weighting: str = "uniform"
+    latent_qat: LatentQAT | None = None
+    _times = 1
+
+    def _loss(self, model, x, noise, t, qat_noise=None) -> Losses:
+        noised = self.noise_schedule.interpolate(x, noise, t)
+        target = self.noise_schedule.compute_target(x, noise)
+        latents = self._encode(model, x, qat_noise)
+        pred = model(noised, _time_pair(t), latents)
+        per_fn = (weighted_l2_per_example if self.use_weighted_loss
+                  else mse_per_example)
+        loss = apply_loss_weighting(per_fn(pred, target), t,
+                                    self.loss_weighting, model)
+        return loss, {"mse": mse_loss(pred, target).detach()}
+
+
+def _jvp(model, z, tz, t, r, latents, differentiable: bool):
+    """(u, du/dt) of ``model`` at (z, [t, t - r]) along (tz, 1, 0)."""
+    with fwAD.dual_level(), stage.differentiable_tangents(differentiable):
+        z_dual = fwAD.make_dual(z, tz.to(z.dtype))
+        t_dual = fwAD.make_dual(t, torch.ones_like(t))
+        out = fwAD.unpack_dual(model(z_dual, _time_pair(t_dual, t_dual - r),
+                                     latents))
+        return out.primal, out.tangent
+
+
+@dataclass(frozen=True)
+class MeanFlowObjective(Objective):
+    """Mean flow with adaptive reweighting, on the uniform interpolant."""
+
+    time_sampling: MeanFlowTimeSampling = field(
+        default_factory=MeanFlowTimeSampling)
+    gamma: float = 0.5
+    c: float = 1e-3
+    #: detach du/dt in the target (True = the paper's setting)
+    use_stop_gradient: bool = True
+    loss_weighting: str = "uniform"
+    latent_qat: LatentQAT | None = None
+    _times = 2
+
+    def _loss(self, model, x, noise, t, r, qat_noise=None) -> Losses:
+        noised = (1.0 - t) * x + t * noise
+        v = noise - x
+        latents = self._encode(model, x, qat_noise)
+        u, dudt = _jvp(model, noised, v, t, r, latents,
+                       not self.use_stop_gradient)
+        if self.use_stop_gradient:
+            dudt = dudt.detach()
+        u_target = v - (t - r).clamp(0.0, 1.0) * dudt
+        per = adaptive_weighted_per_example(u - u_target, gamma=self.gamma,
+                                            c=self.c)
+        loss = apply_loss_weighting(per, t, self.loss_weighting, model)
+        return loss, {"mse": mse_loss(u, u_target).detach()}
+
+
+@dataclass(frozen=True)
+class ImprovedMeanFlowObjective(Objective):
     """Improved mean flow: explicit boundary velocity, JVP along (v, 1, 0),
     compound prediction u + (t - r) sg(du/dt) regressed on the schedule's
     target."""
 
-    noise_schedule: object = field(default_factory=LinearNoiseSchedule)
+    noise_schedule: Any = field(default_factory=LinearNoiseSchedule)
     time_sampling: MeanFlowTimeSampling = field(
         default_factory=MeanFlowTimeSampling)
     use_weighted_loss: bool = True
     #: detach du/dt in the compound prediction (the paper's setting)
     use_stop_gradient: bool = True
-    #: 'uniform' | 'time_dependent' (see ops.losses)
+    #: 'uniform' | 'time_dependent' | 'learned' (see ops.losses)
     loss_weighting: str = "uniform"
+    latent_qat: LatentQAT | None = None
+    _times = 2
 
-    def __post_init__(self) -> None:
-        if not self.use_stop_gradient:
-            raise NotImplementedError(
-                "use_stop_gradient=False (gradient through the JVP tangent) "
-                "is not ported yet")
-
-    def loss(self, model: nn.Module, x: torch.Tensor,
-             generator: torch.Generator | None = None,
-             noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
-             r: torch.Tensor | None = None
-             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """(loss, {"mse": ...}) for flat examples ``x`` [B, D].
-
-        ``noise`` [B, D] and the ``t``/``r`` columns [B, 1] are drawn from
-        ``generator`` unless given (tests pass in what the JAX loss drew).
-        """
-        batch = x.shape[0]
-        if noise is None:
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                device=x.device)
-        if (t is None) != (r is None):
-            raise ValueError("pass both t and r, or neither")
-        if t is None:
-            t, r = self.time_sampling.sample_time_pair(
-                batch, generator, dtype=x.dtype, device=x.device)
+    def _loss(self, model, x, noise, t, r, qat_noise=None) -> Losses:
         noised = self.noise_schedule.interpolate(x, noise, t)
         target = self.noise_schedule.compute_target(x, noise)
-        latents = model.encode(x)
-
-        # du/dt is detached, so no gradient reaches v: the boundary forward
+        latents = self._encode(model, x, qat_noise)
+        # with du/dt detached no gradient reaches v, so the boundary forward
         # needs no graph
-        with torch.no_grad():
+        boundary = (torch.no_grad() if self.use_stop_gradient
+                    else contextlib.nullcontext())
+        with boundary:
             v = model(noised, _time_pair(t), latents)
-        with fwAD.dual_level():
-            z = fwAD.make_dual(noised, v.to(noised.dtype))
-            t_dual = fwAD.make_dual(t, torch.ones_like(t))
-            u, dudt = fwAD.unpack_dual(
-                model(z, _time_pair(t_dual, t_dual - r), latents))
-        v_pred = u + (t - r) * dudt.detach()
+        u, dudt = _jvp(model, noised, v, t, r, latents,
+                       not self.use_stop_gradient)
+        if self.use_stop_gradient:
+            dudt = dudt.detach()
+        v_pred = u + (t - r) * dudt
         per_fn = (weighted_l2_per_example if self.use_weighted_loss
                   else mse_per_example)
         loss = apply_loss_weighting(per_fn(v_pred, target), t,
-                                    self.loss_weighting)
+                                    self.loss_weighting, model)
         return loss, {"mse": mse_loss(v_pred, target).detach()}
 
 
-def create_loss_strategy(config: CodecConfig) -> ImprovedMeanFlowObjective:
+METHODS = ("autoencoder", "flow_matching", "mean_flow", "improved_mean_flow")
+
+
+def create_loss_strategy(config: CodecConfig) -> Objective:
     """The objective the config names, with the JAX package's defaults for
-    unset fields. Only 'improved_mean_flow' is ported."""
+    unset fields: an explicit ``loss_strategy`` wins, else ``method``, else
+    ``use_improved_mean_flow`` picks iMF or FM."""
     name = config.loss_strategy
     if name is None:
-        if config.method in ("autoencoder", "mean_flow", "flow_matching",
-                             "improved_mean_flow"):
+        if config.method in METHODS:
             name = config.method
         else:
             name = ("improved_mean_flow" if config.use_improved_mean_flow
                     else "flow_matching")
-    if name != "improved_mean_flow":
-        raise NotImplementedError(f"objective {name!r} is not ported yet "
-                                  "(only 'improved_mean_flow')")
-    if config.qat_step_frac is not None or config.qat_bits is not None:
-        raise NotImplementedError("latent QAT is not ported yet")
 
     schedule_kwargs = {}
     if (config.noise_schedule or "linear") == "linear":
@@ -131,29 +267,63 @@ def create_loss_strategy(config: CodecConfig) -> ImprovedMeanFlowObjective:
             "noise_max": (config.noise_max if config.noise_max is not None
                           else 0.999),
         }
+    noise_schedule = create_noise_schedule(config.noise_schedule,
+                                           **schedule_kwargs)
+    mean = (config.time_sampling_mean
+            if config.time_sampling_mean is not None else -0.4)
+    std = (config.time_sampling_std
+           if config.time_sampling_std is not None else 1.0)
+    # flow_ratio is the legacy name of the r = t proportion
     proportion = config.time_sampling_data_proportion
     if proportion is None:
         proportion = config.flow_ratio if config.flow_ratio is not None else 0.5
-    if (config.time_sampling or "logit_normal") not in (
-            "uniform", "logit_normal", "mean_flow"):
-        raise ValueError(f"Unknown time_sampling: {config.time_sampling}. "
-                         "Must be one of: 'uniform', 'logit_normal', "
-                         "'mean_flow'")
-    # iMF always samples ordered pairs (the JAX package builds a
-    # MeanFlowTimeSampling whatever time_sampling names)
-    time_sampling = MeanFlowTimeSampling(
-        mean=(config.time_sampling_mean
-              if config.time_sampling_mean is not None else -0.4),
-        std=(config.time_sampling_std
-             if config.time_sampling_std is not None else 1.0),
-        data_proportion=proportion,
-        full_interval_proportion=config.time_sampling_full_proportion or 0.0)
-    return ImprovedMeanFlowObjective(
-        noise_schedule=create_noise_schedule(config.noise_schedule,
-                                             **schedule_kwargs),
-        time_sampling=time_sampling,
-        use_weighted_loss=(config.use_weighted_loss
-                           if config.use_weighted_loss is not None else True),
-        use_stop_gradient=(config.use_stop_gradient
-                           if config.use_stop_gradient is not None else True),
-        loss_weighting=config.loss_weighting or "uniform")
+    full_proportion = config.time_sampling_full_proportion or 0.0
+    time_name = config.time_sampling or "logit_normal"
+    if time_name == "uniform":
+        time_sampling: Any = UniformTimeSampling()
+    elif time_name == "logit_normal":
+        time_sampling = LogitNormalTimeSampling(mean=mean, std=std)
+    elif time_name == "mean_flow":
+        time_sampling = MeanFlowTimeSampling(
+            mean=mean, std=std, data_proportion=proportion,
+            full_interval_proportion=full_proportion)
+    else:
+        raise ValueError(f"Unknown time_sampling: {time_name}. Must be one "
+                         "of: 'uniform', 'logit_normal', 'mean_flow'")
+    # the mean-flow objectives always sample ordered pairs
+    mf_sampling = (time_sampling
+                   if isinstance(time_sampling, MeanFlowTimeSampling)
+                   else MeanFlowTimeSampling(
+                       mean=mean, std=std, data_proportion=proportion,
+                       full_interval_proportion=full_proportion))
+    use_weighted = (config.use_weighted_loss
+                    if config.use_weighted_loss is not None else True)
+    weighting = config.loss_weighting or "uniform"
+    stop_grad = (config.use_stop_gradient
+                 if config.use_stop_gradient is not None else True)
+    qat = None
+    if config.qat_step_frac is not None or config.qat_bits is not None:
+        qat = LatentQAT(mode=config.qat_mode or "ste",
+                        step_frac=config.qat_step_frac, bits=config.qat_bits)
+
+    if name == "autoencoder":
+        return AutoencoderObjective(latent_qat=qat)
+    if name == "flow_matching":
+        return FlowMatchingObjective(
+            noise_schedule=noise_schedule, time_sampling=time_sampling,
+            use_weighted_loss=use_weighted, loss_weighting=weighting,
+            latent_qat=qat)
+    if name == "mean_flow":
+        return MeanFlowObjective(
+            time_sampling=mf_sampling,
+            gamma=config.gamma if config.gamma is not None else 0.5,
+            c=config.c if config.c is not None else 1e-3,
+            use_stop_gradient=stop_grad, loss_weighting=weighting,
+            latent_qat=qat)
+    if name == "improved_mean_flow":
+        return ImprovedMeanFlowObjective(
+            noise_schedule=noise_schedule, time_sampling=mf_sampling,
+            use_weighted_loss=use_weighted, use_stop_gradient=stop_grad,
+            loss_weighting=weighting, latent_qat=qat)
+    raise ValueError(f"Unknown loss_strategy: {name}. Must be one of: "
+                     f"{', '.join(repr(m) for m in METHODS)}")

@@ -2,7 +2,10 @@
 and ``make_multi_step`` in ``meanflow_audio_codec_tpu/training/train_step.py``.
 
 One step: tokenize and flatten (forward only: no gradient flows through the
-MDCT) -> the objective's loss -> gradients -> the raw global gradient norm
+MDCT) -> the objective's draws -> its loss (recomputed in the backward pass
+with ``remat``, as the JAX package's ``jax.checkpoint`` of the loss for
+``tpu.remat``; the draws are made before it, so the recomputation sees the
+same ones) -> gradients -> the raw global gradient norm
 -> clip, AdamW and EMA -> the non-finite guard. PyTorch runs it eagerly.
 The single step decides the guard on the host and updates the state in
 place only when it passes; the chunk decides it on the device for each of
@@ -23,10 +26,9 @@ from __future__ import annotations
 from collections.abc import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from meanflow_audio_codec_torch.training.objectives import (
-    ImprovedMeanFlowObjective,
-)
+from meanflow_audio_codec_torch.training.objectives import Objective
 from meanflow_audio_codec_torch.training.optim import (
     TrainState,
     Update,
@@ -50,8 +52,8 @@ def _check_devices(state: TrainState, **tensors) -> None:
                              f"state on {state.device}")
 
 
-def _loss_and_update(objective, tokenizer, flatten, state, batch, generator,
-                     noise, t, r):
+def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
+                     generator, noise, t, r):
     """(metrics, update) of one step on ``batch``; nothing is written."""
     x = batch
     with torch.no_grad():
@@ -59,22 +61,28 @@ def _loss_and_update(objective, tokenizer, flatten, state, batch, generator,
             x = tokenizer.tokenize(x)
         if flatten and x.ndim > 2:
             x = x.reshape(x.shape[0], -1)
-    loss, aux = objective.loss(state.model, x, generator=generator,
-                               noise=noise, t=t, r=r)
+    draws = objective.draw(state.model, x, generator, noise=noise, t=t, r=r)
+
+    def loss_fn():
+        return objective.loss(state.model, x, **draws)
+
+    loss, aux = (checkpoint(loss_fn, use_reentrant=False) if remat
+                 else loss_fn())
     grads = torch.autograd.grad(loss, state.params)
     grad_norm = global_norm(grads)
     update = state.apply_gradients(grads, grad_norm)
     return {"loss": loss.detach(), "grad_norm": grad_norm, **aux}, update
 
 
-def make_train_step(objective: ImprovedMeanFlowObjective,
-                    tokenizer=None, flatten: bool = True,
+def make_train_step(objective: Objective, tokenizer=None,
+                    flatten: bool = True, remat: bool = False,
                     skip_nonfinite: bool = False) -> Callable:
     """Build ``step(state, batch, generator=None, noise=None, t=None,
     r=None) -> (state, metrics)``.
 
     ``tokenizer`` (a ``TokenAdapter``) turns raw audio into flat examples;
-    ``flatten`` reshapes examples of more than one axis to one row each.
+    ``flatten`` reshapes examples of more than one axis to one row each;
+    ``remat`` recomputes the loss in the backward pass.
     ``noise``, ``t`` and ``r`` go to the objective (drawn from ``generator``
     when absent). With ``skip_nonfinite`` an update whose loss, gradient
     norm or new parameters are not finite is dropped and the whole state
@@ -88,7 +96,8 @@ def make_train_step(objective: ImprovedMeanFlowObjective,
              r: torch.Tensor | None = None):
         _check_devices(state, batch=batch, noise=noise, t=t, r=r)
         metrics, update = _loss_and_update(objective, tokenizer, flatten,
-                                           state, batch, generator, noise, t, r)
+                                           remat, state, batch, generator,
+                                           noise, t, r)
         ok = True
         if skip_nonfinite:
             ok = bool(_finite(metrics["loss"], metrics["grad_norm"], update))
@@ -100,8 +109,8 @@ def make_train_step(objective: ImprovedMeanFlowObjective,
     return step
 
 
-def make_multi_step(objective: ImprovedMeanFlowObjective, num_steps: int,
-                    tokenizer=None, flatten: bool = True,
+def make_multi_step(objective: Objective, num_steps: int,
+                    tokenizer=None, flatten: bool = True, remat: bool = False,
                     skip_nonfinite: bool = False) -> Callable:
     """Build ``run(state, batches, generator=None, noise=None, t=None,
     r=None) -> (state, metrics)``: ``num_steps`` steps over ``batches``
@@ -127,8 +136,8 @@ def make_multi_step(objective: ImprovedMeanFlowObjective, num_steps: int,
         for i in range(num_steps):
             draws = [d[i] if d is not None else None for d in (noise, t, r)]
             metrics, update = _loss_and_update(
-                objective, tokenizer, flatten, state, batches[i], generator,
-                *draws)
+                objective, tokenizer, flatten, remat, state, batches[i],
+                generator, *draws)
             if skip_nonfinite:
                 ok = _finite(metrics["loss"], metrics["grad_norm"], update)
                 state.commit_where(update, ok)

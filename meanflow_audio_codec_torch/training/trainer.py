@@ -10,8 +10,11 @@ retention -> the serving checkpoint and the summary. The workdir layout,
 the log records and the checkpoints are the JAX package's, so either
 package resumes the other's run.
 
-What the port's trainer does not take yet raises, naming the ROADMAP item:
-disk corpora (an existing ``data_dir``), mnist, objectives other than iMF,
+Every objective of the JAX package trains (autoencoder, flow matching,
+mean flow, improved mean flow; the learned loss weighting, whose polynomial
+the factory adds to the model's parameters; latent QAT), and ``tpu.remat`` recomputes the
+loss in the backward pass. What the port's trainer does not take yet raises,
+naming the ROADMAP item: disk corpora (an existing ``data_dir``), mnist,
 more than one device, and orbax checkpoints. Noise, t and r come from one
 ``torch.Generator`` on the state's device seeded with ``config.seed``; like
 the JAX key, it is not saved, so a resumed run draws anew from the seed.
@@ -40,7 +43,7 @@ from meanflow_audio_codec_torch.device import resolve_device
 from meanflow_audio_codec_torch.models.factories import create_flow_model
 from meanflow_audio_codec_torch.ops.losses import ema
 from meanflow_audio_codec_torch.ops.mdct import num_frames_for_length
-from meanflow_audio_codec_torch.ops.sampling import sample_dual_time
+from meanflow_audio_codec_torch.ops.sampling import sample, sample_dual_time
 from meanflow_audio_codec_torch.ops.tokenize import (
     create_tokenization_strategy,
 )
@@ -111,13 +114,13 @@ def _check_data(config: CodecConfig) -> None:
     """Raise on data the port does not read yet."""
     if config.dataset != "audio":
         raise NotImplementedError(
-            f"dataset {config.dataset!r} is not ported yet (ROADMAP item "
-            "9a: the port trains on synthetic audio only)")
+            f"dataset {config.dataset!r} is not ported yet (ROADMAP queue 1 "
+            "item 9: the port trains on synthetic audio only)")
     if config.data_dir and Path(config.data_dir).exists():
         raise NotImplementedError(
             f"data_dir {config.data_dir!r} exists: disk corpora "
             "(build_audio_pipeline, the decoders, data/native.py) are not "
-            "ported yet (ROADMAP item 9a)")
+            "ported yet (ROADMAP queue 1 item 8)")
 
 
 def _check_ported(config: CodecConfig) -> None:
@@ -126,13 +129,10 @@ def _check_ported(config: CodecConfig) -> None:
     tpu = config.source.get("tpu") or {}
     if tpu.get("mesh_data", -1) > 1 or tpu.get("mesh_model", 1) > 1:
         raise NotImplementedError(
-            "more than one device is not ported yet (ROADMAP items 9a, 19, "
-            f"parallel/): tpu.mesh_data {tpu.get('mesh_data')}, "
+            "more than one device is not ported yet (ROADMAP queue 1 item "
+            f"12, parallel/): tpu.mesh_data {tpu.get('mesh_data')}, "
             f"tpu.mesh_model {tpu.get('mesh_model')}")
-    try:
-        create_loss_strategy(config)
-    except NotImplementedError as exc:
-        raise NotImplementedError(f"{exc} (ROADMAP item 7)") from exc
+    create_loss_strategy(config)
     if config.architecture_options.get("quantized"):
         raise ValueError(
             "architecture_options.quantized is a serving-only knob: the int8 "
@@ -240,9 +240,10 @@ def train_flow(config: CodecConfig, resume: bool = False,
     skip = config.skip_nonfinite_updates
     if steps_per_call > 1:
         step_fn = make_multi_step(objective, steps_per_call, adapter,
-                                  skip_nonfinite=skip)
+                                  remat=config.remat, skip_nonfinite=skip)
     else:
-        step_fn = make_train_step(objective, adapter, skip_nonfinite=skip)
+        step_fn = make_train_step(objective, adapter, remat=config.remat,
+                                  skip_nonfinite=skip)
 
     log = LogWriter(logs_dir / "train_log.jsonl")
     first_batch = (device_pool.sample(1, config.batch_size)[0]
@@ -283,15 +284,19 @@ def train_flow(config: CodecConfig, resume: bool = False,
     loss_ema = None
     skipped_updates = 0  # count of guard-rejected (non-finite) updates
     batch = first_batch
+    is_mean_flow = (config.method in ("mean_flow", "improved_mean_flow")
+                    or config.use_improved_mean_flow)
 
     @torch.no_grad()
     def run_sampling(state, step: int) -> None:
+        if (config.method or "") == "autoencoder":
+            return
         model = sampler
         if state.ema is not None:
             torch._foreach_copy_(list(model.parameters()), state.ema)
         x_tokens, gains = adapter.tokenize_with_gain(eval_batch)
         latents = model.encode(x_tokens)
-        flat = sample_dual_time(
+        flat = (sample_dual_time if is_mean_flow else sample)(
             model, noise_dim, latents, n_steps=config.sample_steps,
             guidance_scale=config.sample_guidance_scale or 1.0,
             generator=torch.Generator(device).manual_seed(config.sample_seed))
@@ -308,6 +313,7 @@ def train_flow(config: CodecConfig, resume: bool = False,
             # always the chunk form: the chunked path feeds [k, B, ...] even
             # for a final partial chunk of k == 1
             chunk_fns[k] = make_multi_step(objective, k, adapter,
+                                           remat=config.remat,
                                            skip_nonfinite=skip)
         return chunk_fns[k]
 

@@ -28,7 +28,9 @@ from torch import nn
 # flax name -> (torch name, kind of module it names; None for a parameter)
 _CHILDREN = {
     "flow": {"latent_proj": ("latent_proj", "dense"),
-             "encoder": ("encoder", "encoder")},
+             "encoder": ("encoder", "encoder"),
+             # the learned loss weighting's polynomial (ops/losses.py)
+             "loss_weighting": ("loss_weighting", "loss_weighting")},
     "stage": {"Dense_0": ("bottleneck_in", "dense"),
               "Dense_1": ("lift", "dense"),
               "Conv_0": ("lift_conv", "dense"),
@@ -46,6 +48,7 @@ _CHILDREN = {
     "dense": {"kernel": ("weight", None), "bias": ("bias", None)},
     "conv": {"kernel": ("weight", None), "bias": ("bias", None)},
     "grn": {"gamma": ("gamma", None), "beta": ("beta", None)},
+    "loss_weighting": {"poly": ("poly", None)},
 }
 
 _STAGE = re.compile(r"blocks_(\d+)$")

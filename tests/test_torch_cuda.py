@@ -267,6 +267,38 @@ def test_stage_ops_tangent_and_gradient_match_plain_autograd(device, op, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("op,ref", [
+    (stage.fused_ln_film, stage._ln_film_ref),
+    (stage.fused_ln_norm, stage._ln_norm_ref),
+    (stage.fused_gelu_grn, stage._gelu_grn_ref),
+])
+def test_stage_ops_grad_of_jvp_matches_plain_autograd(device, op, ref):
+    """Reverse mode through the tangent (the objectives without the
+    stop-gradient): the kernel path's gradient of sum((u + 0.3 du)^2)
+    with respect to x, the parameters and the tangent against autograd of
+    the plain version's forward AD, each at rtol 1e-4 and an atol of 1e-4
+    times its largest magnitude."""
+    import torch.autograd.forward_ad as fwAD
+
+    n, p, c = 4, 16, 96
+    x, s, b = _stage_inputs(device, n, p, c, torch.float32, seed=4)
+    tx = _stage_inputs(device, n, p, c, torch.float32, seed=5)[0]
+    args = {stage.fused_ln_film: (x, s, b), stage.fused_ln_norm: (x,),
+            stage.fused_gelu_grn: (x, s[0], b[0])}[op]
+    outs = []
+    for fn in (op, _chain(ref)):
+        leaves = [a.clone().requires_grad_() for a in args]
+        v = tx.clone().requires_grad_()
+        with fwAD.dual_level(), stage.differentiable_tangents():
+            u, du = fwAD.unpack_dual(fn(fwAD.make_dual(leaves[0], v),
+                                        *leaves[1:]))
+        outs.append(torch.autograd.grad((u + 0.3 * du).square().sum(),
+                                        leaves + [v]))
+    for g, r in zip(*outs):
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-4 * r.abs().max().item())
+
+
 def test_stage_wrappers_reject_what_the_kernels_do_not_take(device):
     x = torch.zeros(2, 4, 8, device=device)
     s = torch.zeros(2, 8, device=device)
@@ -390,6 +422,78 @@ def test_multi_step_on_the_card_matches_the_cpu(device):
         torch.backends.cudnn.allow_tf32 = tf32
     torch.testing.assert_close(losses[1], losses[0], rtol=1e-4, atol=0)
     rel = ((moments[1] - moments[0]).norm() / moments[0].norm()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("method,fused", [
+    (dict(method="flow_matching", use_improved_mean_flow=False), False),
+    (dict(method="mean_flow", use_improved_mean_flow=False,
+          use_stop_gradient=False), False),
+    (dict(method="autoencoder", use_improved_mean_flow=False,
+          qat_bits=8), False),
+    (dict(use_stop_gradient=False), True),
+    (dict(loss_weighting="learned", qat_step_frac=0.5), False),
+], ids=["fm", "mf_no_stop_gradient", "ae_qat_bits", "imf_no_stop_gradient_"
+        "fused", "imf_learned_qat"])
+def test_each_objective_steps_on_the_card_as_on_the_cpu(device, method,
+                                                        fused):
+    """One float32 train step of each objective with the same draws, with
+    both remat switches on: loss rtol 1e-4, Adam's first moments within
+    relative L2 1e-5 of the CPU's."""
+    import dataclasses
+
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import (
+        create_tokenization_strategy,
+    )
+    from meanflow_audio_codec_torch.training.adapter import (
+        adapter_from_config,
+    )
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+    from meanflow_audio_codec_torch.training.train_step import (
+        make_train_step,
+    )
+
+    base = _tiny_config()
+    cfg = dataclasses.replace(
+        base, remat=True, architecture_options=dict(
+            base.architecture_options, fused_stage=fused, remat=True,
+            remat_policy="dots_saveable"), **method)
+    objective = create_loss_strategy(cfg)
+    adapter = adapter_from_config(cfg, create_tokenization_strategy(
+        cfg.tokenization_strategy, cfg.tokenization_config))
+    gen = torch.Generator().manual_seed(6)
+    audio = 0.3 * torch.randn(2, 2048, 2, generator=gen)
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the 3x3 convolutions in f32
+    try:
+        for where in ("cpu", device):
+            model = create_flow_model(cfg, torch.Generator().manual_seed(0))
+            state = TrainState(model, make_optimizer(cfg), cfg.ema_decay,
+                               device=where)
+            if not results:
+                with torch.no_grad():
+                    x = adapter.tokenize(audio)
+                draws = objective.draw(state.model, x, gen)
+            step = make_train_step(objective, adapter, remat=cfg.remat,
+                                   skip_nonfinite=True)
+            state, metrics = step(state, audio.to(where), **{
+                k: v.to(where) for k, v in draws.items()})
+            assert metrics["update_ok"]
+            results.append((metrics["loss"].cpu(), torch.cat(
+                [m.reshape(-1).cpu() for m in state.mu])))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lc, mc), (lg, mg) = results
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=0)
+    rel = ((mg - mc).norm() / mc.norm()).item()
     assert rel <= 1e-5, rel
 
 

@@ -70,6 +70,39 @@ def _close(got, ref, tol):
     np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32), **tol)
 
 
+def _f64_refs(name, data, keys):
+    """The segment's output and statistics in float64 numpy, from the same
+    inputs: the referee that says which side departs when the port and JAX
+    disagree."""
+    x, *rest = (data[k].astype(np.float64) for k in keys)
+    if name == "gelu_grn":
+        gamma, beta = rest
+        g = 0.5 * x * (1.0 + np.tanh(np.sqrt(2.0 / np.pi)
+                                     * (x + 0.044715 * x ** 3)))
+        gx = np.sqrt((g * g).sum(axis=1) + 1e-12)
+        nx = gx / (gx.mean(axis=-1, keepdims=True) + 1e-6)
+        return g * (gamma + nx[:, None, :]) + beta, gx
+    mu = x.mean(axis=-1)
+    r = 1.0 / np.sqrt(((x - mu[..., None]) ** 2).mean(axis=-1) + 1e-6)
+    y = (x - mu[..., None]) * r[..., None]
+    if name == "ln_film":
+        s, b = rest
+        y = (1.0 + s[:, None, :]) * y + b[:, None, :]
+    return y, mu, r
+
+
+def _close_or_referee(got, want, tol, ref64):
+    """``_close``; on a failure, the message also gives each side's largest
+    error against the float64 referee."""
+    try:
+        _close(got, want, tol)
+    except AssertionError as exc:
+        errors = {side: float(np.abs(np.asarray(v, np.float64) - ref64).max())
+                  for side, v in (("port", _np(got)), ("jax", want))}
+        raise AssertionError(f"{exc}\nlargest error against float64: "
+                             f"{errors}") from None
+
+
 # (name, the port's plain version, JAX's reference, the input keys)
 REFS = [
     ("ln_film", stage._ln_film_ref, jstage._ln_film_ref, ("x", "s", "b")),
@@ -104,11 +137,13 @@ def test_plain_versions_and_stats_match_jax(name, ref, jref, keys, shape,
              for k in keys]
     got = ref(*(t for _, t in pairs))
     want = jref(*(j for j, _ in pairs))
+    ref64 = _f64_refs(name, data, keys)
     assert got[0].dtype == dtype
-    _close(got[0], want[0], F32 if dtype == torch.float32 else BF16)
-    for g, w in zip(got[1:], want[1:]):  # the statistics, always f32
+    _close_or_referee(got[0], want[0],
+                      F32 if dtype == torch.float32 else BF16, ref64[0])
+    for g, w, r in zip(got[1:], want[1:], ref64[1:]):  # statistics, f32
         assert g.dtype == torch.float32
-        _close(g, w, F32)
+        _close_or_referee(g, w, F32, r)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -178,6 +213,53 @@ def test_public_ops_gradients_match_jax_grad(name, op, jop, keys, tkeys,
     got = torch.autograd.grad(torch.sin(op(*leaves)).sum(), leaves)
     for g, w in zip(got, want):
         _close(g, w, DIFF)
+
+
+@pytest.mark.parametrize("shape", [ALIGNED, (3, 9, 40)], ids=str)
+@pytest.mark.parametrize("name,op,jop,keys,tkeys", OPS,
+                         ids=[o[0] for o in OPS])
+def test_public_ops_grad_of_jvp_matches_jax(name, op, jop, keys, tkeys,
+                                            shape):
+    """Reverse mode through the tangent (the objectives without the
+    stop-gradient): the gradient of sum((u + 0.3 du)^2), with (u, du) the
+    JVP along a tangent of x, with respect to x, the op's parameters and
+    the tangent, against ``jax.grad`` of ``jax.jvp`` of JAX's public op.
+    Summed, so that the gradients are of order one and the 1e-4 tolerance
+    binds."""
+    data = _inputs(shape, seed=6)
+    primals = [data[k] for k in keys] + [data["tx"]]
+    jfn = _jax_op(jop, shape)
+
+    def jloss(x, *rest):
+        *params, v = rest
+        u, du = jax.jvp(lambda z: jfn(z, *params), (x,), (v,))
+        return jnp.sum(jnp.square(u + 0.3 * du))
+
+    want = jax.grad(jloss, argnums=tuple(range(len(primals))))(
+        *map(jnp.asarray, primals))
+    leaves = [torch.from_numpy(p).requires_grad_() for p in primals]
+    x, *params, v = leaves
+    with fwAD.dual_level(), stage.differentiable_tangents():
+        u, du = fwAD.unpack_dual(op(fwAD.make_dual(x, v), *params))
+    got = torch.autograd.grad(torch.square(u + 0.3 * du).sum(), leaves)
+    for g, w in zip(got, want):
+        _close(g, w, DIFF)
+
+
+@pytest.mark.parametrize("name,op,jop,keys,tkeys", OPS,
+                         ids=[o[0] for o in OPS])
+def test_tangents_keep_no_graph_unless_asked(name, op, jop, keys, tkeys):
+    """The stop-gradient objectives' fast path: the tangent rule runs under
+    no_grad, so the tangent is a constant to reverse mode."""
+    data = _inputs((3, 9, 40), seed=7)
+    leaves = [torch.from_numpy(data[k]).requires_grad_() for k in keys]
+    for differentiable in (False, True):
+        with fwAD.dual_level(), stage.differentiable_tangents(differentiable):
+            y, ty = fwAD.unpack_dual(op(fwAD.make_dual(
+                leaves[0], torch.from_numpy(data["tx"])), *leaves[1:]))
+        assert y.requires_grad
+        assert ty.requires_grad == differentiable
+    assert not stage.tangents_differentiable()
 
 
 def test_backward_skips_inputs_without_grad():

@@ -207,9 +207,38 @@ def test_losses_match_jax(weighting):
                                atol=1e-7)
 
 
-def test_learned_loss_weighting_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        losses.apply_loss_weighting(torch.ones(2), torch.ones(2, 1), "learned")
+@pytest.mark.parametrize("poly", [[0.0, 0.0, 0.0], [0.1, 0.4, -0.3]],
+                         ids=["init", "trained"])
+def test_learned_loss_weighting_is_not_ported(poly):
+    """Once a gap that raised, the learned weighting now matches JAX's: the
+    weighted loss and its gradients for the per-example terms and for the
+    polynomial, which sits on the model (``attach_learned_weighting``)."""
+    rng = np.random.default_rng(5)
+    per = rng.uniform(0.5, 2.0, size=6).astype(np.float32)
+    t = rng.uniform(size=(6, 1)).astype(np.float32)
+    poly = np.asarray(poly, np.float32)
+
+    def jloss(per_j, poly_j):
+        return jlosses.apply_loss_weighting(
+            per_j, jnp.asarray(t), "learned",
+            {jlosses.LEARNED_WEIGHT_KEY: {"poly": poly_j}})
+
+    want, (gper, gpoly) = jax.value_and_grad(jloss, argnums=(0, 1))(
+        jnp.asarray(per), jnp.asarray(poly))
+    model = losses.attach_learned_weighting(torch.nn.Module())
+    with torch.no_grad():
+        model.loss_weighting.poly.copy_(torch.from_numpy(poly))
+    per_t = torch.from_numpy(per).requires_grad_()
+    got = losses.apply_loss_weighting(per_t, torch.from_numpy(t), "learned",
+                                      model)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6)
+    for g, w in zip(torch.autograd.grad(got, [per_t,
+                                              model.loss_weighting.poly]),
+                    (gper, gpoly)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5,
+                                   atol=1e-7)
+    with pytest.raises(ValueError, match="learned"):
+        losses.apply_loss_weighting(per_t, torch.from_numpy(t), "learned")
 
 
 # ---------------------------------------------------------------------------
@@ -254,17 +283,31 @@ def test_objective_from_frontier_v2_matches_jax():
     assert vars(ours.time_sampling) == vars(ref.time_sampling)
 
 
-def test_unported_objectives_raise():
-    base = {"noise_dimension": 8, "condition_dimension": 4,
-            "latent_dimension": 2, "num_blocks": 1}
-    for method in ({"method": "flow_matching"}, {"method": "mean_flow"},
-                   {"method": "autoencoder"},
-                   {"method": "improved_mean_flow", "qat_bits": 8},
-                   {"method": "improved_mean_flow",
-                    "use_stop_gradient": False}):
-        with pytest.raises(NotImplementedError):
-            create_loss_strategy(config_from_dict({"model": base,
-                                                   "method": method}))
+@pytest.mark.parametrize("method", [
+    {"method": "flow_matching"}, {"method": "mean_flow"},
+    {"method": "autoencoder"},
+    {"method": "improved_mean_flow", "use_improved_mean_flow": True,
+     "qat_bits": 8},
+    {"method": "improved_mean_flow", "use_improved_mean_flow": True,
+     "use_stop_gradient": False}], ids=str)
+def test_unported_objectives_raise(method):
+    """The five objectives that raised before they were ported now build
+    the objective the JAX package builds, with its settings."""
+    jcfg = _schedule_config("constant", 0)
+    jcfg.method = MethodConfig(**method)
+    ours = create_loss_strategy(config_from_dict(jcfg.to_dict()))
+    ref = jobjectives.create_loss_strategy(jcfg)
+    assert type(ours).__name__ == type(ref).__name__
+    for name in ("use_weighted_loss", "use_stop_gradient", "loss_weighting",
+                 "gamma", "c"):
+        if hasattr(ours, name):
+            assert getattr(ours, name) == getattr(ref, name), name
+    for name in ("noise_schedule", "time_sampling", "latent_qat"):
+        if hasattr(ours, name):
+            got, want = getattr(ours, name), getattr(ref, name)
+            assert (got is None) == (want is None), name
+            if got is not None:
+                assert vars(got) == vars(want), name
 
 
 def _schedule_config(schedule, warmup, n_steps=20):

@@ -36,7 +36,11 @@ from meanflow_audio_codec_tpu.models.factories import (
 from meanflow_audio_codec_tpu.models.train_state import (
     TrainState as JaxTrainState,
 )
+from meanflow_audio_codec_tpu.ops import sampling as jsampling
 from meanflow_audio_codec_tpu.training import checkpoints as jckpt
+from meanflow_audio_codec_tpu.training.trainer import (
+    load_flow_state as jax_load_flow_state,
+)
 from meanflow_audio_codec_tpu.training.trainer import (
     make_optimizer as jax_make_optimizer,
 )
@@ -45,7 +49,10 @@ from meanflow_audio_codec_tpu.training.trainer import (
 )
 from meanflow_audio_codec_torch import train as cli
 from meanflow_audio_codec_torch import weights
+from meanflow_audio_codec_torch.codec import AudioCodec
 from meanflow_audio_codec_torch.configs import config_from_dict
+from meanflow_audio_codec_torch.models import conv_flow
+from meanflow_audio_codec_torch.ops import sampling
 from meanflow_audio_codec_torch.training.logging import read_log
 from meanflow_audio_codec_torch.training.trainer import (
     effective_noise_dimension,
@@ -229,6 +236,130 @@ def test_resume_with_a_truncated_config_trains_on(runs, tmp_path, capsys,
         "n_steps"] == 6
 
 
+def test_a_qat_run_resumes_from_a_frontier_checkpoint(runs, tmp_path):
+    """Chain stage 2c in small: the newest frontier checkpoint and its
+    metadata copied into a QAT workdir, then --resume trains on through the
+    STE ECSQ grid, and the run serves through the ECSQ 0.5 byte path."""
+    _, port_dir, _ = runs
+    workdir = tmp_path / "qat"
+    (workdir / "checkpoints").mkdir(parents=True)
+    for name in ("step_00004.msgpack", "step_00004.metadata.json"):
+        shutil.copy(port_dir / "checkpoints" / name, workdir / "checkpoints")
+    data = _tiny(workdir, base={"n_steps": 6},
+                 method={"qat_mode": "ste", "qat_step_frac": 0.5})
+    (tmp_path / "qat.json").write_text(json.dumps(data))
+    config = cli.config_from_args(cli.build_parser().parse_args(
+        ["--config", str(tmp_path / "qat.json"), "--resume"]))
+    assert (config.qat_mode, config.qat_step_frac) == ("ste", 0.5)
+    train_flow(config, resume=True, device="cpu")
+    records = [r for r in read_log(workdir / "logs" / "train_log.jsonl")
+               if "loss" in r]
+    assert [r["step"] for r in records] == [4, 5]
+    assert all(r["update_ok"] and np.isfinite(r["loss"]) for r in records)
+    assert (workdir / "checkpoints" / "step_00006.msgpack").exists()
+    codec = AudioCodec.from_workdir(workdir, device="cpu")
+    audio = np.random.default_rng(0).standard_normal(
+        (1, 4096, 2)).astype(np.float32) * 0.1
+    data = codec.encode_bytes(audio, step_frac=0.5)
+    out = codec.decode_bytes(data, generator=torch.Generator().manual_seed(0))
+    assert out.shape[0] == 1 and out.shape[-1] == 2
+    assert out.shape[1] >= 4096 and torch.isfinite(out).all()
+
+
+def _learned_jax_config(workdir):
+    jcfg = TrainFlowConfig.from_dict(_tiny(
+        workdir, method={"loss_weighting": "learned"}))
+    jcfg.model.noise_dimension = 128
+    return jcfg
+
+
+def test_learned_weighting_checkpoints_cross_both_ways(tmp_path):
+    """The polynomial sits at params["loss_weighting"]["poly"] (and in the
+    moments and the EMA): the port's trained checkpoint loads in JAX's
+    load_flow_state, and a JAX checkpoint in the port's."""
+    workdir = tmp_path / "port"
+    config = config_from_dict(_tiny(workdir, base={"n_steps": 2},
+                                    method={"loss_weighting": "learned"}))
+    train_flow(config, device="cpu")
+    path = workdir / "checkpoints" / "step_00002.msgpack"
+    state, _ = load_flow_state(path, config, device="cpu")
+    poly = dict(zip(state.names, state.params))["loss_weighting.poly"]
+    poly = poly.detach()
+    assert poly.abs().max() > 0  # trained jointly with the model
+    jstate, _ = jax_load_flow_state(path, _learned_jax_config(workdir))
+    np.testing.assert_array_equal(
+        np.asarray(jstate.params["loss_weighting"]["poly"]), poly.numpy())
+    ema = dict(zip(state.names, state.ema))["loss_weighting.poly"]
+    np.testing.assert_array_equal(
+        np.asarray(jstate.ema_params["loss_weighting"]["poly"]), ema.numpy())
+
+    # the reverse: a JAX state with a learned slot, saved by JAX
+    jpath = tmp_path / "jax" / "step_00003.msgpack"
+    poly_j = np.asarray([0.25, -0.5, 0.125], np.float32)
+    params = dict(jstate.params)
+    params["loss_weighting"] = {"poly": jnp.asarray(poly_j)}
+    jckpt.save_checkpoint(jstate.replace(params=params, step=3), jpath)
+    state, model = load_flow_state(jpath, config, device="cpu")
+    assert state.step == 3
+    np.testing.assert_array_equal(model.loss_weighting.poly.detach().numpy(),
+                                  poly_j)
+
+
+@pytest.mark.parametrize("n_steps,guidance", [(1, 1.0), (3, 1.0), (2, 2.0)])
+def test_flow_matching_sampling_matches_jax_heun(n_steps, guidance):
+    """The trainer's flow-matching sampler against JAX's ``sample``: the
+    same grid (linspace(1, 0, n), dt = 1/n), the initial noise JAX draws
+    from its key passed in."""
+    flow = dict(noise_dimension=64, condition_dimension=16, num_blocks=2,
+                latent_dimension=8, channels=16, bottleneck_dim=32,
+                spatial=4, lift_channels=8)
+    jmodel = jax_create_flow_model(TrainFlowConfig.from_dict({
+        **_tiny("unused"), "model": {
+            "noise_dimension": 64, "condition_dimension": 16,
+            "latent_dimension": 8, "num_blocks": 2,
+            "architecture": "convnet", "architecture_options": {
+                k: flow[k] for k in ("channels", "bottleneck_dim",
+                                     "spatial", "lift_channels")}}}))
+    rng = np.random.default_rng(4)
+    params = jax.tree_util.tree_map(
+        lambda a: (0.2 * rng.standard_normal(a.shape)).astype(np.float32),
+        jax.eval_shape(lambda: jmodel.init(
+            jax.random.PRNGKey(0), jnp.zeros((2, 64)), jnp.zeros((2, 2)),
+            method="init_all"))["params"])
+    latents = rng.standard_normal((3, 8)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    want = jsampling.sample(jmodel.apply, 64, params, key,
+                            jnp.asarray(latents), n_steps=n_steps,
+                            guidance_scale=guidance)
+    noise = torch.from_numpy(np.array(jax.random.normal(key, (3, 64))))
+    model = weights.load_flax_params(conv_flow.ConditionalConvFlow(**flow),
+                                     params)
+    got = sampling.sample(model, 64, torch.from_numpy(latents),
+                          n_steps=n_steps, guidance_scale=guidance,
+                          noise=noise)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["autoencoder", "flow_matching",
+                                    "mean_flow"])
+def test_every_method_trains_and_samples_as_jax_does(tmp_path, method):
+    """Two steps of each method through the trainer; autoencoder runs write
+    no samples (JAX's run_sampling returns first), the flow methods write a
+    WAV per sampling point."""
+    workdir = tmp_path / method
+    config = config_from_dict(_tiny(
+        workdir, base={"n_steps": 2},
+        method={"method": method, "use_improved_mean_flow": False}))
+    train_flow(config, device="cpu")
+    records = [r for r in read_log(workdir / "logs" / "train_log.jsonl")
+               if "loss" in r]
+    assert [r["step"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["loss"]) for r in records)
+    wavs = sorted(p.name for p in (workdir / "samples").glob("*.wav"))
+    assert wavs == ([] if method == "autoencoder" else ["step_00002.wav"])
+
+
 def test_geometry_helpers():
     config = config_from_dict(_tiny("unused"))
     assert input_example_shape(config) == (2048, 2)
@@ -238,8 +369,7 @@ def test_geometry_helpers():
 @pytest.mark.parametrize("section,values,error", [
     ("dataset", {"dataset": "mnist"}, NotImplementedError),
     ("dataset", {"data_dir": "."}, NotImplementedError),
-    ("method", {"method": "flow_matching",
-                "use_improved_mean_flow": False}, NotImplementedError),
+    ("method", {"loss_strategy": "diffusion"}, ValueError),
     ("tpu", {"mesh_data": 4}, NotImplementedError),
     ("training", {"checkpoint_format": "orbax"}, NotImplementedError),
     ("model", {"architecture_options": {"channels": 16, "spatial": 4,
