@@ -8,8 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc)
-     and the rANS coder from native/entropy.cpp (g++), all sources at once,
+  2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc),
+     the rANS coder from native/entropy.cpp and the audio loader from
+     native/dataloader.cpp (g++), all sources at once,
      and print the build seconds, the ptxas report and
      the instruction mix of the MDCT's, IMDCT's and single-read GELU+GRN's
      main loops (cuobjdump);
@@ -38,9 +39,9 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path (and those of phases 7-12) is driven with the kernels'
-     launch counts (and the count of each GELU+GRN kernel) set to 0 just
-     before it and read just after;
+     each path (and those of phases 7-12 and 9a) is driven with the
+     kernels' launch counts (and the count of each GELU+GRN kernel) set to
+     0 just before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
      against the same step with it off; the round trip and one small-batch
      fused train step on the card against the same on the CPU;
@@ -74,6 +75,24 @@ and prints no result line):
      factor; the streaming encoder against batch ``encode`` and the
      streaming decoder in 16- against 64-frame chunks, within relative L2
      2e-2 (bf16 compute; the measured max error is printed);
+  9a. the corpus: ``tools/make_corpus`` writes 16 FLAC and 4 WAV clips of
+     4.46 s (mixed family) into a temporary directory; the frames/s of
+     ``build_audio_pipeline`` over it for 20 batches of 16 x 32768 x 2,
+     native with 2 threads (as the trainer builds it, ``files_skipped``
+     0) and the Python stages; then ``python -m
+     meanflow_audio_codec_torch.train --config configs/corpus_rehearsal.json
+     --data-dir <corpus>`` through ``main`` at full width (114,472,384
+     parameters, bf16, chunks of 16, ``dots_saveable``, the device pool cut
+     from 1024 clips to 64), 32 steps then ``--resume`` to 48, each run
+     checkpointing and sampling once, at its end; the trainer phase's
+     checks of the workdir and the parameter count; chunk ms per step,
+     steps/s, frames/s, peak memory, FLOPs and MFU beside the loader's
+     rate, and the seconds and bytes of every checkpoint write; the exact
+     stream (``--device-pool-clips 0``, the default for a corpus) for 32
+     steps, its chunk ms per step beside the pooled run's and the host
+     synchronisations inside its second chunk (0 required); the run served
+     (``from_workdir``, the codec CLI on a FLAC clip of the corpus) and a
+     10 s clip's ``encode_bytes`` / ``decode_bytes`` as v1 8-bit;
   10. (run right after serving, on the trainer's workdir) the QAT trainer:
      chain stage 2c at full width, the trainer's step-48 checkpoint and its
      metadata copied into a fresh workdir and ``python -m
@@ -98,8 +117,9 @@ and prints no result line):
      profiles of one round trip and one bf16 train step with
      ``fused_stage`` on and off (device time by kernel, busy share);
   14. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
-     trainer, codec bytes, codec CLI, streaming, QAT trainer, each
-     objective, each remat setting), then the result line
+     trainer, codec bytes, codec CLI, streaming, QAT trainer, the corpus
+     trainer, its exact stream and serving, each objective, each remat
+     setting), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
@@ -114,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -170,6 +191,12 @@ from meanflow_audio_codec_torch.training.train_step import (
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "frontier_v2.json"
 QAT_CONFIG = REPO / "configs" / "frontier_v2_qat.json"
+CORPUS_CONFIG = REPO / "configs" / "corpus_rehearsal.json"
+#: the corpus phase's corpus (make_corpus, mixed family), the loader's timed
+#: batches and the corpus config's parameter count (the JAX package's)
+CORPUS_FLAC, CORPUS_WAV, CORPUS_SECONDS = 16, 4, 4.46
+LOADER_BATCHES = 20
+CORPUS_PARAMS = 114_472_384
 SAMPLE_RATE = 44100
 RTOL, ATOL = 1e-4, 1e-3
 REPEATS = 10  # timed round trips per request
@@ -1012,6 +1039,44 @@ def trainer_path(device: torch.device, card: str, bare: dict,
     return launches, ema
 
 
+def count_syncs(label: str, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and print
+    the host synchronisations inside the train steps, with each call site's
+    stack; returns ``fn``'s result and that count."""
+    import traceback
+    import warnings
+
+    # call site -> count, split by whether the chunk's steps are on the
+    # stack (train_step.py) or not (switching the debug mode itself warns)
+    sites = {True: collections.Counter(), False: collections.Counter()}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if "warnings" not in f.filename]
+            inside = any(f.filename.endswith("train_step.py") for f in stack)
+            sites[inside]["; ".join(
+                f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                for f in stack[-4:])] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    count = sum(sites[True].values())
+    print(f"host synchronisations inside {label}: {count}"
+          + "".join(f"\n  {n} x {site}" for site, n in sites[True].items())
+          + "".join(f"\n  outside the steps: {n} x {site}"
+                    for site, n in sites[False].items()), flush=True)
+    return out, count
+
+
 def chunk_probe(device: torch.device, bare: dict) -> int:
     """The trainer's 16-step chunk alone (frontier-v2 config, bf16,
     ``fused_stage`` off, no data thread): its time per step with and
@@ -1020,9 +1085,6 @@ def chunk_probe(device: torch.device, bare: dict) -> int:
     synchronisations inside one chunk, counted by
     ``torch.cuda.set_sync_debug_mode("warn")`` with each call site's
     stack. Returns the count."""
-    import traceback
-    import warnings
-
     state, _ = train_setup(device, fused=False, precision="bfloat16")
     config = load_config(CONFIG)
     adapter = adapter_from_config(config, create_tokenization_strategy(
@@ -1062,34 +1124,8 @@ def chunk_probe(device: torch.device, bare: dict) -> int:
     profile("a 2-step chunk of the trainer's step, bf16",
             lambda: pair(state, batches[:2], gen))
 
-    # call site -> count, split by whether the chunk's steps are on the
-    # stack (train_step.py) or not (switching the debug mode itself warns)
-    sites = {True: collections.Counter(), False: collections.Counter()}
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" in str(message):
-            stack = [f for f in traceback.extract_stack()[:-1]
-                     if "warnings" not in f.filename]
-            inside = any(f.filename.endswith("train_step.py") for f in stack)
-            sites[inside]["; ".join(
-                f"{Path(f.filename).name}:{f.lineno} {f.name}"
-                for f in stack[-4:])] += 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state, metrics = run(state, batches, gen)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    count = sum(sites[True].values())
-    print(f"host synchronisations inside one 16-step chunk: {count}"
-          + "".join(f"\n  {n} x {site}" for site, n in sites[True].items())
-          + "".join(f"\n  outside the steps: {n} x {site}"
-                    for site, n in sites[False].items()), flush=True)
+    (state, metrics), count = count_syncs(
+        "one 16-step chunk", lambda: run(state, batches, gen))
     if not bool(metrics["update_ok"].all()):
         raise AssertionError("a step of the probed chunk was rejected")
     return count
@@ -1596,6 +1632,332 @@ def streaming_path(device: torch.device, card: str, codec: AudioCodec):
     return launches
 
 
+@contextlib.contextmanager
+def timed_checkpoint_writes():
+    """Time every checkpoint the trainer writes (the full ``step_N``
+    checkpoint with its sidecar, and the serving file): yields a list that
+    fills with (file name, seconds, bytes)."""
+    from meanflow_audio_codec_torch.training import checkpoints
+
+    writes: list[tuple[str, float, int]] = []
+    names = ("save_checkpoint_with_metadata", "save_serving_checkpoint")
+    real = {name: getattr(checkpoints, name) for name in names}
+
+    def timed(name):
+        def write(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = Path(real[name](*args, **kwargs))
+            writes.append((path.name, time.perf_counter() - t0,
+                           path.stat().st_size))
+            return path
+        return write
+
+    for name in names:
+        setattr(checkpoints, name, timed(name))
+    try:
+        yield writes
+    finally:
+        for name in names:
+            setattr(checkpoints, name, real[name])
+
+
+def _print_writes(writes: list, label: str) -> None:
+    for name, seconds, size in writes:
+        print(f"checkpoint write ({label}): {name} {size / 1e6:.1f} MB in "
+              f"{seconds:.3f} s ({size / 1e6 / seconds:.1f} MB/s; device "
+              f"to host, msgpack and the file)", flush=True)
+
+
+def make_test_corpus(root: Path) -> Path:
+    """``tools/make_corpus`` into ``root``: ``CORPUS_FLAC`` FLAC clips of
+    the mixed family (seed 0) and ``CORPUS_WAV`` WAV clips (seed 1), 4.46 s
+    each, a mixed-container corpus the native loader reads whole."""
+    from meanflow_audio_codec_torch.tools.make_corpus import make_corpus
+
+    t0 = time.perf_counter()
+    files = (make_corpus(root, "mixed", CORPUS_FLAC, CORPUS_SECONDS, "flac",
+                         seed=0)
+             + make_corpus(root, "mixed", CORPUS_WAV, CORPUS_SECONDS, "wav",
+                           seed=1))
+    mb = sum(p.stat().st_size for p in files) / 1e6
+    print(f"corpus: make_corpus wrote {CORPUS_FLAC} FLAC + {CORPUS_WAV} WAV "
+          f"clips of {CORPUS_SECONDS} s (mixed family), {mb:.1f} MB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return root
+
+
+def loader_rates(corpus: Path, config) -> float:
+    """``build_audio_pipeline`` over ``corpus`` at the config's batch and
+    frame: the native loader with 2 producer threads (as the trainer builds
+    it) and the Python stages (``native=False``), ``LOADER_BATCHES`` batches
+    each after a first; returns the native loader's clips per second."""
+    from meanflow_audio_codec_torch.data import native as native_mod
+    from meanflow_audio_codec_torch.data.audio import build_audio_pipeline
+
+    frame, batch = config.tokenization_config["frame_size"], config.batch_size
+    nf = num_frames_for_length(frame, 512, 256)
+    rates = {}
+    for label, native in (("native, 2 threads", None),
+                          ("Python stages", False)):
+        pipeline = build_audio_pipeline(corpus, seed=config.seed,
+                                        frame_size=frame, batch_size=batch,
+                                        native=native)
+        try:
+            if isinstance(pipeline, native_mod.NativeAudioLoader) != (
+                    native is None):
+                raise AssertionError(f"loader ({label}): routed to "
+                                     f"{type(pipeline).__name__}")
+            next(pipeline)  # the first batch waits for the first decodes
+            t0 = time.perf_counter()
+            for _ in range(LOADER_BATCHES):
+                out = next(pipeline)
+            seconds = time.perf_counter() - t0
+            skipped = (f", files_skipped {pipeline.files_skipped}"
+                       if native is None else "")
+            if native is None and pipeline.files_skipped:
+                raise AssertionError(f"the loader skipped "
+                                     f"{pipeline.files_skipped} files")
+        finally:
+            pipeline.close()
+        if out.shape != (batch, frame, 2) or not bool(
+                torch.from_numpy(out).isfinite().all()):
+            raise AssertionError(f"loader ({label}): batch {out.shape}")
+        rates[label] = LOADER_BATCHES * batch / seconds
+        print(f"loader ({label}): {LOADER_BATCHES} batches of {batch} x "
+              f"{frame} x 2 in {seconds:.3f} s: "
+              f"{LOADER_BATCHES / seconds:.2f} batches/s, "
+              f"{rates[label]:.1f} clips/s, {rates[label] * nf:.1f} MDCT "
+              f"frames/s{skipped}", flush=True)
+    return rates["native, 2 threads"]
+
+
+def _corpus_config():
+    """configs/corpus_rehearsal.json, checked to be the full-width bf16
+    config whose runs save and sample only at their end."""
+    config = load_config(CORPUS_CONFIG)
+    options = config.architecture_options
+    width = (options["channels"], options["bottleneck_dim"],
+             options["lift_channels"], options["spatial"], config.num_blocks,
+             config.latent_dimension)
+    if (width != (512, 1024, 64, 8, 8, 256) or config.precision != "bfloat16"
+            or config.steps_per_call != 16 or config.checkpoint_step < 48
+            or config.sample_every < 48):
+        raise AssertionError(f"{CORPUS_CONFIG.name}: width {width}, "
+                             f"{config.precision}, chunks of "
+                             f"{config.steps_per_call}")
+    return config
+
+
+def corpus_trainer_path(device: torch.device, card: str, corpus: Path,
+                        workdir: Path, loader_clips_s: float):
+    """``python -m meanflow_audio_codec_torch.train --config
+    configs/corpus_rehearsal.json --data-dir <corpus>`` through ``main`` at
+    full width (bf16, chunks of 16, the device pool cut from 1024 clips to
+    64): 32 steps, then ``--resume`` to 48, each run saving and sampling
+    once, at its end. Returns the launch counts, the run's EMA and its chunk
+    time per step."""
+    config = _corpus_config()
+    args = ["--config", str(CORPUS_CONFIG), "--data-dir", str(corpus),
+            "--device-pool-clips", "64", "--workdir", str(workdir)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    with timed_checkpoint_writes() as writes:
+        for extra in (["--n-steps", "32"], ["--resume", "--n-steps", "48"]):
+            if train_cli.main(args + extra) != 0:
+                raise AssertionError(f"corpus train main {extra} failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    steps, summary, ema = _check_trainer_workdir(workdir)
+    counts = {r.get("param_count") for r in read_log(
+        workdir / "logs" / "train_log.jsonl") if r.get("event") == "start"}
+    if counts != {CORPUS_PARAMS}:
+        raise AssertionError(f"corpus trainer: {counts} parameters, "
+                             f"expected {CORPUS_PARAMS}")
+    print(f"corpus trainer path launches (32 + 16 steps, 2 samplings): "
+          f"{launches}", flush=True)
+    if launches["mdct_cuda"] < 48 or launches["imdct_cuda"] < 1:
+        raise AssertionError("the corpus trainer did not run the MDCT on "
+                             "every step and the IMDCT in its sampling")
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 16, 32)]
+    med = statistics.median(chunk_ms[1:])
+    rows = config.batch_size * num_frames_for_length(CLIP_LEN, 512, 256)
+    flops = summary["flops_per_step"]
+    peak = profiling.peak_flops(device)
+    tflops = flops / (med / 1e3) / 1e12
+    mfu = (f"mfu {tflops * 1e12 / peak:.4f}" if peak else
+           "mfu not measured (no peak known for this card)")
+    step_clips_s = config.batch_size * 1e3 / med
+    print(f"[{card}] corpus trainer (corpus_rehearsal.json, "
+          f"{CORPUS_PARAMS} params, bf16, chunks of 16, device pool 64 "
+          f"clips): chunk time per step {chunk_ms[0]:.3f} / "
+          f"{chunk_ms[1]:.3f} / {chunk_ms[2]:.3f} ms (chunks 1-3; the first "
+          f"includes the start), median after the first {med:.3f} ms, "
+          f"{1e3 / med:.3f} steps/s, {rows / med * 1e3:.1f} frames/s; wall "
+          f"{wall:.1f} s for both runs; peak memory {peak_gb:.3f} GB; "
+          f"{flops / 1e9:.1f} GFLOP per step, {tflops:.2f} achieved "
+          f"TFLOP/s, {mfu}", flush=True)
+    print(f"[{card}] loader against the step: the native loader sustains "
+          f"{loader_clips_s:.1f} clips/s, the step consumes "
+          f"{step_clips_s:.1f} clips/s ({loader_clips_s / step_clips_s:.2f}x)",
+          flush=True)
+    _print_writes(writes, "corpus trainer")
+    if len(writes) != 4:
+        raise AssertionError(f"corpus trainer wrote {len(writes)} "
+                             "checkpoints, expected 2 runs x (full, serving)")
+    return launches, ema, med
+
+
+def corpus_exact_stream_path(device: torch.device, card: str, corpus: Path,
+                             workdir: Path, pooled_ms: float) -> dict:
+    """The same config without the device pool (``--device-pool-clips 0``,
+    the JAX package's default for a corpus: host batches go to the card
+    every chunk): 32 steps, the host synchronisations inside the second
+    chunk counted. Returns the launch counts."""
+    from meanflow_audio_codec_torch.training import trainer as trainer_mod
+
+    real = trainer_mod.make_multi_step
+    calls, syncs = [0], []
+
+    def counted(*args, **kwargs):
+        chunk = real(*args, **kwargs)
+
+        def run(*a, **kw):
+            calls[0] += 1
+            if calls[0] != 2:
+                return chunk(*a, **kw)
+            out, count = count_syncs("one 16-step chunk of the exact stream",
+                                     lambda: chunk(*a, **kw))
+            syncs.append(count)
+            return out
+        return run
+
+    args = ["--config", str(CORPUS_CONFIG), "--data-dir", str(corpus),
+            "--device-pool-clips", "0", "--n-steps", "32", "--workdir",
+            str(workdir)]
+    trainer_mod.make_multi_step = counted
+    zero_launches()
+    try:
+        with timed_checkpoint_writes() as writes:
+            if train_cli.main(args) != 0:
+                raise AssertionError("exact-stream train main failed")
+    finally:
+        trainer_mod.make_multi_step = real
+    launches = read_launches()
+    steps = [r for r in read_log(workdir / "logs" / "train_log.jsonl")
+             if "event" not in r]
+    if [r["step"] for r in steps] != list(range(32)) or not all(
+            math.isfinite(r["loss"]) and r["update_ok"] is True
+            for r in steps):
+        raise AssertionError("exact stream: steps missing, non-finite or "
+                             "rejected")
+    summary = json.loads((workdir / "summary.json").read_text())
+    if "pool_skipped_refreshes" in summary:
+        raise AssertionError("the exact stream ran through a device pool")
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 16)]
+    print(f"[{card}] corpus exact stream (no device pool): chunk time per "
+          f"step {chunk_ms[0]:.3f} / {chunk_ms[1]:.3f} ms (chunks 1-2; the "
+          f"first includes the start) against {pooled_ms:.3f} ms with the "
+          f"pool ({chunk_ms[1] / pooled_ms:.4f}x)", flush=True)
+    _print_writes(writes, "exact stream")
+    print(f"corpus exact stream path launches (32 steps, 1 sampling): "
+          f"{launches}", flush=True)
+    if launches["mdct_cuda"] < 32 or launches["imdct_cuda"] < 1:
+        raise AssertionError("the exact stream did not run the MDCT on "
+                             "every step and the IMDCT in its sampling")
+    if syncs != [0]:
+        raise AssertionError(f"exact stream: host synchronisations inside "
+                             f"a chunk: {syncs}")
+    return launches
+
+
+def corpus_serving_path(device: torch.device, card: str, workdir: Path,
+                        corpus: Path, ema: dict, scratch: Path) -> dict:
+    """Serve the corpus run: ``AudioCodec.from_workdir`` (the run's EMA,
+    ``CORPUS_PARAMS`` parameters), the codec CLI (encode, info, decode) on
+    one FLAC clip of the corpus, and ``encode_bytes`` / ``decode_bytes`` of
+    a 10 s clip as MACB v1 8-bit, timed. Returns the launch counts."""
+    from meanflow_audio_codec_torch.data.audio import load_audio_file
+    from meanflow_audio_codec_torch.tools import codec_cli
+
+    zero_launches()
+    codec = AudioCodec.from_workdir(workdir)
+    _same_weights(codec, ema, "step_00048.msgpack")
+    n_params = sum(p.numel() for p in codec.model.parameters())
+    if n_params != CORPUS_PARAMS:
+        raise AssertionError(f"served corpus model: {n_params} parameters")
+    window, hop = codec.adapter.strategy.config.window_size, codec._hop
+    clip = sorted(corpus.glob("*.flac"))[0]
+    length = load_audio_file(clip).shape[1]
+    macb, out = scratch / "corpus.macb", scratch / "corpus_out.wav"
+    for argv in (["encode", str(clip), "--workdir", str(workdir), "-o",
+                  str(macb)], ["info", str(macb)],
+                 ["decode", str(macb), "--workdir", str(workdir), "-o",
+                  str(out)]):
+        if codec_cli.main(argv) != 0:
+            raise AssertionError(f"codec_cli {argv[0]} on {clip.name} failed")
+    decoded = load_audio_file(out)
+    nf = num_frames_for_length(length, window, hop)
+    if decoded.shape != (2, (nf - 1) * hop + 2 * window) or not bool(
+            torch.from_numpy(decoded).isfinite().all()):
+        raise AssertionError(f"codec_cli on {clip.name}: {decoded.shape}")
+    print(f"corpus run served: from_workdir gave the run's EMA "
+          f"({n_params} params); codec_cli encode -> info -> decode on "
+          f"{clip.name} ({length} samples): {decoded.shape[1]} samples x 2, "
+          f"finite", flush=True)
+
+    audio = synth_audio(1, 10 * SAMPLE_RATE,
+                        torch.Generator(device).manual_seed(12), device)
+    codec.decode_bytes(codec.encode_bytes(audio, bits=8))  # warm-up
+    enc_ms, data = _wall_ms(lambda: codec.encode_bytes(audio, bits=8),
+                            BYTES_REPEATS)
+    gen = torch.Generator(device)
+    dec_ms, recon = _wall_ms(lambda: codec.decode_bytes(
+        data, generator=gen.manual_seed(4)), BYTES_REPEATS)
+    nf = num_frames_for_length(audio.shape[1], window, hop)
+    if (tuple(recon.shape) != (1, (nf - 1) * hop + 2 * window, 2)
+            or not torch.isfinite(recon).all()):
+        raise AssertionError(f"corpus codec bytes: {tuple(recon.shape)}")
+    print(f"[{card}] corpus codec bytes, 10 s clip, v1 8-bit: encode_bytes "
+          f"{enc_ms:.3f} ms, decode_bytes {dec_ms:.3f} ms (medians of "
+          f"{BYTES_REPEATS}), {len(data)} bytes = "
+          f"{len(data) * 8 / 10 / 1000:.1f} kbps stored (seeded weights "
+          f"after 48 steps: a rate, not a quality figure)", flush=True)
+    launches = read_launches()
+    print(f"corpus serving path launches: {launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched on the corpus "
+                                 "serving path")
+    return launches
+
+
+def corpus_phase(device: torch.device, card: str, scratch: Path) -> dict:
+    """The corpus phase: a corpus from ``make_corpus``, the loader's rates,
+    the full-width corpus trainer, its exact stream and serving the run;
+    returns the launch counts of the three corpus paths."""
+    corpus = make_test_corpus(scratch / "corpus")
+    loader_clips_s = loader_rates(corpus, _corpus_config())
+    paths = {}
+    workdir = scratch / "corpus_run"
+    paths["corpus_trainer"], ema, pooled_ms = corpus_trainer_path(
+        device, card, corpus, workdir, loader_clips_s)
+    torch.cuda.empty_cache()
+    paths["corpus_exact_stream"] = corpus_exact_stream_path(
+        device, card, corpus, scratch / "corpus_exact", pooled_ms)
+    torch.cuda.empty_cache()
+    paths["corpus_serving"] = corpus_serving_path(device, card, workdir,
+                                                  corpus, ema, scratch)
+    for label, counts in paths.items():
+        stage_counts = {k: counts[k] for k in stage_cuda.launches}
+        print(f"{label}: stage kernel launches {stage_counts} (fused_stage "
+              "is off in the config: 0 expected)", flush=True)
+    return paths
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -1711,6 +2073,10 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     lap("streaming")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(corpus_phase(device, card, Path(tmp)))
+    torch.cuda.empty_cache()
+    lap("corpus")
     chunk_probe(device, bare)
     torch.cuda.empty_cache()
     lap("chunk probe")

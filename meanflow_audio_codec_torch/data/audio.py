@@ -1,33 +1,49 @@
-"""Synthetic audio sources, host-side batch pools, WAV input and output.
+"""Audio sources: disk corpora, synthetic families, batch pools, file input
+and WAV output.
 
-Counterpart of the synthetic part of ``meanflow_audio_codec_tpu/data/audio.py``
-(the ``tonal``, ``rich``, ``speech``, ``mixed`` and ``mixed2`` families,
-``synthetic_pipeline_for_family``, ``replay_pool_batches``,
-``prefetch_batches`` and ``write_wav``), copied as it is: plain numpy with
-seeded ``default_rng`` generators, so the same seed gives the same batches,
-bit for bit, in both packages. Batches are float32 ``[B, frame_size, 2]``.
-File input for the codec CLI is ``load_audio_file`` on WAV, with the
-polyphase ``resample_audio``.
+Counterpart of ``meanflow_audio_codec_tpu/data/audio.py``, copied as it is
+but for the native loader's build (below):
 
-The disk corpora (``build_audio_pipeline``, the native loader) and the AIFF,
-FLAC and MP3 decoders are not ported yet (ROADMAP queue 1 item 8).
+  * the decoders: WAV through the stdlib ``wave`` module, AIFF/AIFC and FLAC
+    through the native decoder of ``native/dataloader.cpp``
+    (``data/native.py``), MP3 through ``minimp3py`` when it imports, else
+    pygame's SDL mixer when that imports, else not at all (the file is
+    skipped); ``load_audio_file`` with the polyphase ``resample_audio``;
+  * the pipeline stages, ``glob(+shuffle) -> prefetch decode (a worker
+    thread, a bounded blocking queue) -> random-offset framing -> buffer
+    shuffle (O(1) swap-and-pop) -> batch``, and ``build_audio_pipeline``,
+    which takes the native loader when every file has a native extension
+    and nothing is resampled, and these Python stages otherwise;
+  * the synthetic ``tonal``, ``rich``, ``speech``, ``mixed`` and ``mixed2``
+    families, ``replay_pool_batches``, ``prefetch_batches`` and
+    ``write_wav``: plain numpy with seeded ``default_rng`` generators, so
+    the same seed gives the same batches, bit for bit, in both packages.
+
+Batches are float32 ``[B, frame_size, 2]``. Where the JAX package takes
+the Python stages because its native library did not build, the port raises
+with the compiler's output.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import warnings
 import wave
 from pathlib import Path
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
+from meanflow_audio_codec_torch.data import native as native_mod
+
 TARGET_SAMPLE_RATE = 44100
 DEFAULT_FRAME_SIZE = 256 * 256 * 3  # ~4.46 s @ 44.1 kHz
-#: file types the JAX package decodes through its native loader or SDL
-_UNPORTED_EXTENSIONS = (".aiff", ".aif", ".flac", ".mp3")
+AUDIO_EXTENSIONS = (".wav", ".aiff", ".aif", ".flac", ".mp3")
+#: extensions the native decoder reads (it dispatches on the container's
+#: magic: RIFF, FORM, fLaC)
+NATIVE_EXTENSIONS = (".wav", ".aiff", ".aif", ".flac")
 
 
 def synthetic_audio_pipeline(seed: int = 0,
@@ -544,6 +560,132 @@ def _decode_wav(path: Path) -> tuple[np.ndarray, int] | None:
     return audio, rate
 
 
+def _decode_native(path: Path) -> tuple[np.ndarray, int] | None:
+    """AIFF/AIFC and FLAC through the native decoder (constant, verbatim,
+    fixed and LPC subframes, Rice residuals, CRC-checked frames)."""
+    return native_mod.decode_audio_native(path)
+
+
+#: (MPEG version key -> sample-rate table); version bits from the frame
+#: header: 3 = MPEG-1, 2 = MPEG-2, 0 = MPEG-2.5.
+_MP3_RATES = {3: (44100, 48000, 32000),
+              2: (22050, 24000, 16000),
+              0: (11025, 12000, 8000)}
+_MP3_BITRATES_V1L3 = (0, 32, 40, 48, 56, 64, 80, 96, 112,
+                      128, 160, 192, 224, 256, 320)
+_MP3_BITRATES_V2L3 = (0, 8, 16, 24, 32, 40, 48, 56, 64,
+                      80, 96, 112, 128, 144, 160)
+
+
+def _mp3_frame_at(data: bytes, i: int) -> tuple[int, int, int] | None:
+    """Parse a candidate MPEG Layer III frame header at offset ``i``.
+
+    Returns (sample_rate, channels, frame_length_bytes) or None. The frame
+    length lets the caller check that a *second* sync word follows, which
+    rejects false syncs inside the payload.
+    """
+    if i + 4 > len(data) or data[i] != 0xFF or (data[i + 1] & 0xE0) != 0xE0:
+        return None
+    b1, b2, b3 = data[i + 1], data[i + 2], data[i + 3]
+    version = (b1 >> 3) & 3
+    layer = (b1 >> 1) & 3
+    if version not in _MP3_RATES or layer != 1:  # layer bits 01 = Layer III
+        return None
+    bitrate_idx = (b2 >> 4) & 0xF
+    rate_idx = (b2 >> 2) & 3
+    if bitrate_idx in (0, 0xF) or rate_idx == 3:
+        return None
+    rate = _MP3_RATES[version][rate_idx]
+    kbps = (_MP3_BITRATES_V1L3 if version == 3
+            else _MP3_BITRATES_V2L3)[bitrate_idx]
+    padding = (b2 >> 1) & 1
+    # samples per frame: 1152 (MPEG-1) or 576 (MPEG-2/2.5) for Layer III
+    factor = 144 if version == 3 else 72
+    length = factor * kbps * 1000 // rate + padding
+    channels = 1 if ((b3 >> 6) & 3) == 3 else 2
+    return rate, channels, length
+
+
+def mp3_stream_info(path: Path) -> tuple[int, int] | None:
+    """(sample_rate, channels) of the first verified MP3 frame, or None.
+
+    Skips a leading ID3v2 tag, then scans for a sync word whose computed
+    frame length lands on another valid sync (two-frame verification
+    against false syncs in tag or payload bytes).
+    """
+    with open(path, "rb") as fh:
+        data = fh.read(256 * 1024)
+    i = 0
+    if data[:3] == b"ID3" and len(data) >= 10:
+        i = 10 + ((data[6] << 21) | (data[7] << 14)
+                  | (data[8] << 7) | data[9])
+    while i + 4 <= len(data):
+        frame = _mp3_frame_at(data, i)
+        if frame is not None:
+            rate, channels, length = frame
+            nxt = i + length
+            if nxt + 4 > len(data) or _mp3_frame_at(data, nxt) is not None:
+                return rate, channels
+        i += 1
+    return None
+
+
+_SDL_MIXER_LOCK = threading.Lock()
+
+
+def _decode_mp3_sdl(path: Path) -> tuple[np.ndarray, int] | None:
+    """MP3 through the platform codec (SDL_mixer through pygame), or None
+    when pygame does not import.
+
+    The mixer converts to its init format at load, so the frame header is
+    parsed first and the mixer opened at the file's own rate: the decode is
+    then not resampled. A lock serialises it (the mixer is process-global
+    and decoders run in prefetch threads), and the mixer is closed again
+    inside the lock: left open from a worker thread, SDL's exit-time
+    teardown on the main thread can spin forever.
+    """
+    try:
+        os.environ.setdefault("SDL_AUDIODRIVER", "dummy")
+        # the import-time banner would corrupt JSON-lines output
+        os.environ.setdefault("PYGAME_HIDE_SUPPORT_PROMPT", "1")
+        import pygame.mixer as mixer
+        import pygame.sndarray as sndarray
+    except Exception:
+        return None
+    info = mp3_stream_info(path)
+    if info is None:
+        return None
+    rate, channels = info
+    with _SDL_MIXER_LOCK:
+        try:
+            mixer.init(frequency=rate, size=-16, channels=channels)
+            sound = mixer.Sound(str(path))
+            pcm = sndarray.array(sound)
+        finally:
+            mixer.quit()
+    audio = pcm.astype(np.float32) / 32768.0
+    if audio.ndim == 1:
+        audio = audio[:, None]
+    return audio.T, rate
+
+
+def _decode_mp3(path: Path) -> tuple[np.ndarray, int] | None:
+    """MP3 through ``minimp3py`` when it imports, else the SDL mixer."""
+    try:
+        import minimp3py
+    except ImportError:
+        return _decode_mp3_sdl(path)
+    data, rate = minimp3py.read(str(path))
+    return np.asarray(data, dtype=np.float32).T, int(rate)
+
+
+_DECODERS: dict[str, Callable] = {".wav": _decode_wav,
+                                  ".aiff": _decode_native,
+                                  ".aif": _decode_native,
+                                  ".flac": _decode_native,
+                                  ".mp3": _decode_mp3}
+
+
 def resample_audio(audio: np.ndarray, rate: int, target_rate: int) -> np.ndarray:
     """Polyphase resample (C, T) float32 audio to the target rate (scipy's
     ``resample_poly`` at the rational rate ratio)."""
@@ -559,24 +701,23 @@ def resample_audio(audio: np.ndarray, rate: int, target_rate: int) -> np.ndarray
 def load_audio_file(path: Path | str,
                     target_rate: int = TARGET_SAMPLE_RATE,
                     resample: bool = False) -> np.ndarray | None:
-    """Decode one WAV file to stereo (2, T) float32 at the target rate.
+    """Decode one WAV, AIFF, FLAC or MP3 file to stereo (2, T) float32 at
+    the target rate.
 
     Files at other rates are dropped with a warning unless ``resample``
     (the codec CLI's setting) converts them; a file that does not decode
-    warns and gives None, as does a type no loader reads. AIFF, FLAC and MP3
-    raise ``NotImplementedError``: their decoders are not ported yet.
+    warns and gives None, as does a type no decoder reads. A native decoder
+    whose library does not build raises.
     """
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix in _UNPORTED_EXTENSIONS:
-        raise NotImplementedError(
-            f"{suffix} input is not ported yet (ROADMAP queue 1 item 8: the "
-            "native loader); convert the file to WAV")
-    if suffix != ".wav":
+    decoder = _DECODERS.get(path.suffix.lower())
+    if decoder is None:
         return None
+    if decoder is _decode_native:
+        native_mod.available()  # a failed build raises here, not per file
     try:
-        decoded = _decode_wav(path)
-    except (wave.Error, EOFError, OSError, ValueError) as exc:
+        decoded = decoder(path)
+    except Exception as exc:  # one bad file must not stop a corpus pass
         warnings.warn(f"Failed to decode {path}: {exc}")
         return None
     if decoded is None:
@@ -591,3 +732,200 @@ def load_audio_file(path: Path | str,
     if audio.shape[0] == 1:
         audio = np.concatenate([audio, audio], axis=0)  # mono -> stereo dup
     return np.ascontiguousarray(audio[:2])
+
+
+# ============================================================================
+# Pipeline stages
+# ============================================================================
+
+
+def glob_audio_files(data_dir: str | Path, seed: int = 0) -> list[Path]:
+    """Every decodable audio file under data_dir, shuffled by the seed."""
+    root = Path(data_dir)
+    files = sorted(p for ext in AUDIO_EXTENSIONS for p in root.rglob(f"*{ext}"))
+    rng = np.random.default_rng(seed)
+    rng.shuffle(files)
+    return files
+
+
+def load_audio_files(files: list[Path], prefetch: int = 2,
+                     target_rate: int = TARGET_SAMPLE_RATE,
+                     loop: bool = True,
+                     resample: bool = False) -> Iterator[np.ndarray]:
+    """Decode ``files`` in order, in a daemon worker thread that fills a
+    *bounded blocking* queue of ``prefetch`` files; files that do not decode
+    are skipped. ``prefetch=0`` decodes in the consumer, without a thread.
+
+    A full pass in which *every* file is dropped (undecodable, or off-rate
+    without ``resample``) raises RuntimeError instead of spinning forever.
+    """
+    if prefetch <= 0:
+        return _load_audio_files_sync(files, target_rate, loop, resample)
+    return _load_audio_files_threaded(files, prefetch, target_rate, loop,
+                                      resample)
+
+
+def _no_decodable_error(files, target_rate) -> RuntimeError:
+    return RuntimeError(
+        f"None of the {len(files)} audio files decoded to usable frames "
+        f"(undecodable, or sample rate != {target_rate} with resample "
+        "disabled — pass resample=True / config.resample_audio to convert)")
+
+
+def _load_audio_files_sync(files, target_rate, loop, resample=False):
+    while True:
+        yielded = False
+        for path in files:
+            audio = load_audio_file(path, target_rate, resample=resample)
+            if audio is not None:
+                yielded = True
+                yield audio
+        if not yielded:
+            raise _no_decodable_error(files, target_rate)
+        if not loop:
+            return
+
+
+def _load_audio_files_threaded(files, prefetch, target_rate, loop,
+                               resample=False):
+    q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+    stop = threading.Event()
+    _SENTINEL = object()
+    _STARVED = object()
+    failure: list[BaseException] = []  # the worker's error, raised here
+
+    def put_checked(item) -> bool:
+        """A blocking put that rechecks the stop flag, so a worker stuck on
+        a full queue exits when the consumer drops the generator."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            while not stop.is_set():
+                yielded = False
+                for path in files:
+                    if stop.is_set():
+                        return
+                    audio = load_audio_file(path, target_rate,
+                                            resample=resample)
+                    if audio is not None:
+                        yielded = True
+                        if not put_checked(audio):
+                            return
+                if not yielded:
+                    put_checked(_STARVED)
+                    return
+                if not loop:
+                    put_checked(_SENTINEL)
+                    return
+        except BaseException as exc:  # e.g. a failed native build
+            failure.append(exc)
+            put_checked(_SENTINEL)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                if failure:
+                    raise failure[0]
+                return
+            if item is _STARVED:
+                raise _no_decodable_error(files, target_rate)
+            yield item
+    finally:
+        stop.set()
+        # drain, so a worker blocked in put() wakes and sees the flag; any
+        # error: at interpreter shutdown the queue module may be gone
+        try:
+            while True:
+                q.get_nowait()
+        except BaseException:
+            pass
+
+
+def audio_to_frames(stream: Iterator[np.ndarray], frame_size: int,
+                    seed: int = 0) -> Iterator[np.ndarray]:
+    """Chop (C, T) streams into (frame_size, C) frames with a random prepend
+    offset and zero padding."""
+    rng = np.random.default_rng(seed)
+    for audio in stream:
+        channels, length = audio.shape
+        offset = int(rng.integers(0, frame_size))
+        padded_len = offset + length
+        n_frames = -(-padded_len // frame_size)
+        total = n_frames * frame_size
+        buf = np.zeros((channels, total), dtype=np.float32)
+        buf[:, offset:offset + length] = audio
+        frames = buf.reshape(channels, n_frames, frame_size)
+        for i in range(n_frames):
+            yield np.ascontiguousarray(frames[:, i, :].T)  # (frame, C)
+
+
+def buffer_shuffle(stream: Iterator[np.ndarray], buffer_size: int,
+                   seed: int = 0) -> Iterator[np.ndarray]:
+    """Reservoir shuffle with O(1) swap-and-pop eviction."""
+    rng = np.random.default_rng(seed)
+    buf: list[np.ndarray] = []
+    for item in stream:
+        if len(buf) < buffer_size:
+            buf.append(item)
+            continue
+        idx = int(rng.integers(0, len(buf)))
+        buf[idx], out = item, buf[idx]
+        yield out
+    rng.shuffle(buf)
+    yield from buf
+
+
+def batch(stream: Iterator[np.ndarray],
+          batch_size: int) -> Iterator[np.ndarray]:
+    """Stack every batch_size frames (a partial last batch is dropped)."""
+    acc: list[np.ndarray] = []
+    for item in stream:
+        acc.append(item)
+        if len(acc) == batch_size:
+            yield np.stack(acc)
+            acc = []
+
+
+def build_audio_pipeline(data_dir: str | Path, seed: int = 0,
+                         frame_size: int = DEFAULT_FRAME_SIZE,
+                         prefetch: int = 2, buffer_size: int = 16,
+                         batch_size: int = 32, loop: bool = True,
+                         native: bool | None = None,
+                         resample: bool = False) -> Iterator[np.ndarray]:
+    """The whole pipeline over the audio files under ``data_dir``: yields
+    ``[B, frame_size, 2]`` float32 batches.
+
+    ``native=None`` takes the native loader (``data/native.py``: decode,
+    framing, shuffle and ``max(1, prefetch)`` producer threads in C++) when
+    every file has a native extension, and the Python stages otherwise;
+    ``native=True`` takes it for any corpus, ``native=False`` never.
+    ``resample=True`` converts off-rate files to 44.1 kHz in the Python
+    stages instead of dropping them (the native loader has no resampler).
+    """
+    files = glob_audio_files(data_dir, seed)
+    if not files:
+        raise FileNotFoundError(f"No audio files under {data_dir}")
+    if (native is None or native) and not resample:
+        all_native = all(f.suffix.lower() in NATIVE_EXTENSIONS for f in files)
+        if all_native or native:
+            return iter(native_mod.NativeAudioLoader(
+                files, frame_size=frame_size, channels=2,
+                batch_size=batch_size,
+                buffer_frames=max(buffer_size, 2 * batch_size),
+                n_threads=max(1, prefetch), seed=seed, loop=loop))
+    stream = load_audio_files(files, prefetch=prefetch, loop=loop,
+                              resample=resample)
+    stream = audio_to_frames(stream, frame_size, seed=seed)
+    stream = buffer_shuffle(stream, buffer_size, seed=seed)
+    return batch(stream, batch_size)
+

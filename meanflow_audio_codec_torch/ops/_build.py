@@ -5,9 +5,11 @@ its own into ``build/lib<name>-<digest>.so`` inside the package, where the
 digest covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused. The
 host C++ sources the port binds (``HOST_SOURCES``: the repository's
-``native/entropy.cpp``, the rANS coder) compile the same way with g++, the
-digest covering the source and the flags. Sources build in parallel, one
-compiler each, at first use; nothing is compiled when a module is imported.
+``native/entropy.cpp``, the rANS coder, and ``native/dataloader.cpp``, the
+audio loader) compile the same way with g++, each with its own flags
+(``host_flags``), the digest covering the source and those flags. Sources
+build in parallel, one compiler each, at first use; nothing is compiled
+when a module is imported.
 A failed build raises with the compiler's output: there is no fallback.
 """
 
@@ -27,8 +29,11 @@ SOURCES = ("mdct", "imdct", "stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: host C++ sources by library name (built with g++, never edited here)
-HOST_SOURCES = {"entropy": PACKAGE_DIR.parent / "native" / "entropy.cpp"}
+HOST_SOURCES = {"entropy": PACKAGE_DIR.parent / "native" / "entropy.cpp",
+                "dataloader": PACKAGE_DIR.parent / "native" / "dataloader.cpp"}
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+#: flags a host source takes beyond ``GXX_FLAGS`` (the loader's threads)
+HOST_EXTRA_FLAGS = {"dataloader": ("-pthread",)}
 
 _libraries: dict[str, ctypes.CDLL] = {}
 
@@ -51,10 +56,15 @@ def _source(name: str) -> Path:
     return HOST_SOURCES.get(name, CSRC_DIR / f"{name}.cu")
 
 
+def host_flags(name: str) -> tuple[str, ...]:
+    """g++'s flags for the host source ``name``."""
+    return GXX_FLAGS + HOST_EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where the compiled ``name`` library lives (built or not)."""
     if name in HOST_SOURCES:
-        text, flags = _source(name).read_bytes(), GXX_FLAGS
+        text, flags = _source(name).read_bytes(), host_flags(name)
     else:
         text = _source(name).read_bytes() + b"".join(
             header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))
@@ -79,7 +89,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
     for name, target in pending.items():
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         if name in HOST_SOURCES:
-            compiler = [shutil.which("g++") or "g++", *GXX_FLAGS]
+            compiler = [shutil.which("g++") or "g++", *host_flags(name)]
         else:
             compiler = [_nvcc(), *NVCC_FLAGS]
         cmd = [*compiler, "-o", str(tmp), str(_source(name))]

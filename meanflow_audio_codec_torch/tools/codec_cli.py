@@ -1,10 +1,10 @@
-"""Codec CLI: compress a WAV file to a .macb bitstream and back.
+"""Codec CLI: compress an audio file to a .macb bitstream and back to WAV.
 
 Counterpart of ``meanflow_audio_codec_tpu/tools/codec_cli.py``, with its
 arguments and printed lines; the .macb files are the same format, so either
 package's CLI decodes the other's.
 
-    python -m meanflow_audio_codec_torch.tools.codec_cli encode song.wav \\
+    python -m meanflow_audio_codec_torch.tools.codec_cli encode song.flac \\
         --workdir outputs/imf_frontier_v2 -o song.macb
     python -m meanflow_audio_codec_torch.tools.codec_cli decode song.macb \\
         --workdir outputs/imf_frontier_v2 -o recon.wav
@@ -12,8 +12,9 @@ package's CLI decodes the other's.
 
 Encode runs tokenize -> encoder -> per-frame scalar quantization -> rANS
 coding (ops/latent_quant.py); decode runs the 1-NFE flow as the
-dequantization post-filter. Input at any sample rate is resampled to 44.1
-kHz. Decoded audio has the frame-implied length ``(nf-1)*hop + 2W``, up to
+dequantization post-filter. Input is WAV, AIFF/AIFC, FLAC or MP3 (MP3
+when ``minimp3py`` or pygame imports), at any sample rate, resampled to
+44.1 kHz. Decoded audio has the frame-implied length ``(nf-1)*hop + 2W``, up to
 one window longer than the input. The codec runs on the card; ``--device
 cpu`` runs the plain PyTorch versions of the kernels.
 """
@@ -89,7 +90,7 @@ def main(argv: list[str] | None = None) -> int:
                                      .RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
 
-    enc = sub.add_parser("encode", help="WAV -> .macb bitstream")
+    enc = sub.add_parser("encode", help="WAV/AIFF/FLAC/MP3 -> .macb bitstream")
     enc.add_argument("input")
     enc.add_argument("-o", "--output", default=None)
     enc.add_argument("--workdir", required=True,

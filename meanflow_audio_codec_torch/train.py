@@ -1,12 +1,12 @@
 """Config-driven training CLI; counterpart of the repository's ``train.py``.
 
     python -m meanflow_audio_codec_torch.train --config configs/X.json \
-        [--workdir outputs/run] [--resume] [--n-steps N] ...
+        [--workdir outputs/run] [--data-dir corpus/] [--resume] ...
 
 Trains on the card (``train_flow(device="cuda")``). The flags it honours
 have the names and meanings of the root CLI's; the root CLI's other flags
 (the flag-driven config without ``--config``, the model and optimiser
-overrides, disk corpora) are refused with a message naming the ROADMAP.
+overrides) are refused with a message naming the ROADMAP.
 """
 
 from __future__ import annotations
@@ -20,12 +20,12 @@ from meanflow_audio_codec_torch.training.trainer import train_flow
 
 #: flags of the root CLI the port does not honour yet
 UNPORTED_FLAGS = (
-    "--dataset", "--data-dir", "--method", "--architecture", "--tokenization",
+    "--dataset", "--method", "--architecture", "--tokenization",
     "--base-lr", "--weight-decay", "--noise-dimension",
     "--condition-dimension", "--latent-dimension", "--num-blocks", "--gamma",
     "--full-interval-proportion", "--window-size", "--coeff-scale",
     "--architecture-options", "--grad-clip-norm", "--warmup-steps",
-    "--lr-schedule", "--lr-final-fraction", "--resample-audio")
+    "--lr-schedule", "--lr-final-fraction")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +37,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run directory (overrides config)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest valid checkpoint")
+    p.add_argument("--data-dir", type=str, default=None,
+                   help="directory of audio files to train on (synthetic "
+                        "audio when it does not exist)")
+    p.add_argument("--resample-audio", action="store_true",
+                   help="polyphase-resample off-rate corpus files to "
+                        "44.1 kHz instead of dropping them")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--n-steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
@@ -55,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host replay-pool size for the synthetic audio source")
     p.add_argument("--device-pool-clips", type=int, default=None,
                    help="device-resident replay pool size in clips (0 "
-                        "disables; default 1024)")
+                        "disables; default 1024 for synthetic audio, 0 for "
+                        "a corpus)")
     p.add_argument("--skip-nonfinite", action="store_true",
                    help="drop NaN/inf updates (decided on the device)")
     p.add_argument("--steps-per-call", type=int, default=None,
@@ -68,6 +75,8 @@ def config_from_args(args):
     overrides: dict = {
         "base": {"batch_size": args.batch_size, "n_steps": args.n_steps,
                  "seed": args.seed},
+        "dataset": {"data_dir": args.data_dir,
+                    "resample_audio": args.resample_audio or None},
         "training": {"workdir": str(args.workdir) if args.workdir else None,
                      "sample_every": args.sample_every,
                      "sample_steps": args.sample_steps,
@@ -86,7 +95,7 @@ def config_from_args(args):
                                  ("device_pool_clips", args.device_pool_clips))
                if v is not None}
     if tok_cfg:
-        overrides["dataset"] = {"tokenization_config": tok_cfg}
+        overrides["dataset"]["tokenization_config"] = tok_cfg
     return merge_configs(load_config(args.config),
                          {k: v for k, v in overrides.items() if v})
 

@@ -2,7 +2,9 @@
 ``meanflow_audio_codec_tpu/training/trainer.py``.
 
 Tokenizer wiring -> workdir layout -> model, optimiser and state -> resume
--> data (synthetic audio through the device replay pool) -> chunks of
+-> data (the audio files under an existing ``data_dir`` through
+``build_audio_pipeline``, else synthetic audio; through the device replay
+pool, which is on by default for synthetic audio only) -> chunks of
 ``steps_per_call`` train steps (tokenization in the step, the non-finite
 guard on the device) -> JSONL logging and profiling (with MFU) -> periodic
 sampling with real encoder latents and the EMA weights -> checkpoints with
@@ -14,8 +16,8 @@ Every objective of the JAX package trains (autoencoder, flow matching,
 mean flow, improved mean flow; the learned loss weighting, whose polynomial
 the factory adds to the model's parameters; latent QAT), and ``tpu.remat`` recomputes the
 loss in the backward pass. What the port's trainer does not take yet raises,
-naming the ROADMAP item: disk corpora (an existing ``data_dir``), mnist,
-more than one device, and orbax checkpoints. Noise, t and r come from one
+naming the ROADMAP item: mnist, more than one device, and orbax
+checkpoints. Noise, t and r come from one
 ``torch.Generator`` on the state's device seeded with ``config.seed``; like
 the JAX key, it is not saved, so a resumed run draws anew from the seed.
 """
@@ -33,6 +35,7 @@ import torch
 
 from meanflow_audio_codec_torch.configs import CodecConfig
 from meanflow_audio_codec_torch.data.audio import (
+    build_audio_pipeline,
     prefetch_batches,
     replay_pool_batches,
     synthetic_pipeline_for_family,
@@ -115,12 +118,7 @@ def _check_data(config: CodecConfig) -> None:
     if config.dataset != "audio":
         raise NotImplementedError(
             f"dataset {config.dataset!r} is not ported yet (ROADMAP queue 1 "
-            "item 9: the port trains on synthetic audio only)")
-    if config.data_dir and Path(config.data_dir).exists():
-        raise NotImplementedError(
-            f"data_dir {config.data_dir!r} exists: disk corpora "
-            "(build_audio_pipeline, the decoders, data/native.py) are not "
-            "ported yet (ROADMAP queue 1 item 8)")
+            "item 9: the port trains on audio only)")
 
 
 def _check_ported(config: CodecConfig) -> None:
@@ -141,23 +139,41 @@ def _check_ported(config: CodecConfig) -> None:
     checkpoints.check_format(config.checkpoint_format)
 
 
+def _on_disk(config: CodecConfig) -> bool:
+    return bool(config.data_dir) and Path(config.data_dir).exists()
+
+
 def make_dataset_iterator(config: CodecConfig) -> Iterator[np.ndarray]:
     """Infinite iterator of raw (untokenized) float32 audio batches
-    ``[B, frame_size, 2]`` from the synthetic source of the config's
-    ``synthetic_family``, through a host replay pool when
-    ``pool_batches`` is set, else through a prefetch thread."""
+    ``[B, frame_size, 2]``: the audio files under an existing ``data_dir``
+    (``build_audio_pipeline``), else the synthetic source of the config's
+    ``synthetic_family``, through a host replay pool when ``pool_batches``
+    is set, else through a prefetch thread."""
     _check_data(config)
     tok_cfg = config.tokenization_config
+    frame_size = tok_cfg.get("frame_size", 65536)
+    if _on_disk(config):
+        return build_audio_pipeline(
+            config.data_dir, seed=config.seed, frame_size=frame_size,
+            batch_size=config.batch_size, resample=config.resample_audio)
     print("No audio data_dir found; using synthetic audio source")
     source = synthetic_pipeline_for_family(
         tok_cfg.get("synthetic_family"), seed=config.seed,
-        frame_size=tok_cfg.get("frame_size", 65536),
-        batch_size=config.batch_size)
+        frame_size=frame_size, batch_size=config.batch_size)
     pool = tok_cfg.get("pool_batches", 0)
     if pool:
         return replay_pool_batches(source, pool_batches=pool,
                                    seed=config.seed)
     return prefetch_batches(source)
+
+
+def device_pool_clips(config: CodecConfig) -> int:
+    """The device replay pool's size in clips: the config's
+    ``device_pool_clips``, by default 1024 for synthetic audio and 0 (the
+    exact stream) for a corpus, where the pool would turn the stream into
+    with-replacement draws of int16 clips unasked."""
+    return config.tokenization_config.get(
+        "device_pool_clips", 0 if _on_disk(config) else 1024)
 
 
 # ============================================================================
@@ -228,7 +244,7 @@ def train_flow(config: CodecConfig, resume: bool = False,
 
     # ---- data / objective / chunked step -----------------------------------
     data_iter = make_dataset_iterator(config)
-    pool_clips = config.tokenization_config.get("device_pool_clips", 1024)
+    pool_clips = device_pool_clips(config)
     device_pool = None
     if pool_clips:
         device_pool = DeviceReplayPool(data_iter, pool_clips=pool_clips,

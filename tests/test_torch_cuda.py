@@ -12,7 +12,10 @@ need not have). Tolerances: rtol 1e-4 / atol 1e-3 for the transforms (their
 contract); for the stage kernels, float32 outputs and every statistic at
 rtol 1e-4 / atol 1e-5 (the same f32 arithmetic summed in another order),
 bf16 outputs at rtol / atol 1e-2 (one bf16 rounding step, 2**-7 relative,
-flips where the f32 values differ in their last bits).
+flips where the f32 values differ in their last bits). The full-width
+corpus config (configs/corpus_rehearsal.json, channels 512) takes one bf16
+step on a batch the native loader reads from a FLAC corpus, and one float32
+step against the CPU's (relative L2 1e-5 of Adam's first moments).
 """
 
 import pytest
@@ -629,3 +632,105 @@ def test_streaming_on_the_card_matches_batch(device):
     assert imdct_cuda_mod.launches > before[1]
     assert torch.isfinite(one).all()
     torch.testing.assert_close(chunked, one, rtol=1e-4, atol=1e-4)
+
+
+def _corpus_rehearsal(device, precision):
+    """(config, train state, step) at configs/corpus_rehearsal.json's full
+    width (channels 512, 8 blocks), ``precision`` compute, seeded weights."""
+    import dataclasses
+    from pathlib import Path
+
+    from meanflow_audio_codec_torch.configs import load_config
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import (
+        create_tokenization_strategy,
+    )
+    from meanflow_audio_codec_torch.training.adapter import adapter_from_config
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+    from meanflow_audio_codec_torch.training.train_step import make_train_step
+
+    path = Path(__file__).resolve().parents[1] / "configs" / (
+        "corpus_rehearsal.json")
+    cfg = dataclasses.replace(load_config(path), precision=precision)
+    model = create_flow_model(cfg, generator=torch.Generator().manual_seed(0))
+    state = TrainState(model, make_optimizer(cfg), cfg.ema_decay,
+                       device=device)
+    adapter = adapter_from_config(cfg, create_tokenization_strategy(
+        cfg.tokenization_strategy, cfg.tokenization_config))
+    step = make_train_step(create_loss_strategy(cfg), adapter,
+                           remat=cfg.remat,
+                           skip_nonfinite=cfg.skip_nonfinite_updates)
+    return cfg, state, step
+
+
+def test_full_width_corpus_step_on_the_card(device, tmp_path):
+    """One bf16 step of corpus_rehearsal.json (114,472,384 parameters) on a
+    batch the native loader reads from a FLAC corpus written by
+    make_corpus: a finite loss and an accepted update."""
+    from meanflow_audio_codec_torch.data.audio import build_audio_pipeline
+    from meanflow_audio_codec_torch.tools.make_corpus import make_corpus
+
+    make_corpus(tmp_path, "mixed", num_clips=3, seconds=1.0, fmt="flac")
+    cfg, state, step = _corpus_rehearsal(device, "bfloat16")
+    assert sum(p.numel() for p in state.params) == 114_472_384
+    frame = cfg.tokenization_config["frame_size"]
+    loader = build_audio_pipeline(tmp_path, seed=cfg.seed, frame_size=frame,
+                                  batch_size=cfg.batch_size)
+    try:
+        batch = torch.from_numpy(next(loader)).to(device)
+    finally:
+        loader.close()
+    assert batch.shape == (cfg.batch_size, frame, 2)
+    state, metrics = step(state, batch,
+                          generator=torch.Generator(device).manual_seed(1))
+    assert torch.isfinite(metrics["loss"]) and bool(metrics["update_ok"])
+
+
+def test_full_width_corpus_step_on_the_card_matches_the_cpu(device):
+    """One float32 step at corpus_rehearsal.json's width (its remat
+    honoured) on one 4096-sample clip with the same draws: loss and
+    grad_norm rtol 1e-4, Adam's first moments within relative L2 1e-5 of
+    the CPU's (the frontier-v2 check of chip_smoke.py, at channels 512)."""
+    from meanflow_audio_codec_torch.ops.mdct import num_frames_for_length
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+
+    gen = torch.Generator().manual_seed(7)
+    t = torch.arange(4096) / 44100.0
+    audio = (0.3 * torch.sin(2 * torch.pi * 220.0 * t)[None, :, None]
+             + 0.1 * torch.randn(1, 4096, 2, generator=gen))
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for where in ("cpu", device):
+            cfg, state, step = _corpus_rehearsal(torch.device(where),
+                                                 "float32")
+            if not results:
+                rows = num_frames_for_length(4096, 512, 256)
+                draws = (torch.randn(rows, 1024, generator=gen),
+                         *create_loss_strategy(cfg).time_sampling
+                         .sample_time_pair(rows, gen))
+            noise, t_, r_ = (d.to(where) for d in draws)
+            state, metrics = step(state, audio.to(where), noise=noise,
+                                  t=t_, r=r_)
+            assert bool(metrics["update_ok"])
+            results.append((metrics["loss"].cpu(),
+                            metrics["grad_norm"].cpu(),
+                            torch.cat([m.reshape(-1).cpu()
+                                       for m in state.mu])))
+            del state
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lc, gc, mc), (lg, gg, mg) = results
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gg, gc, rtol=1e-4, atol=0)
+    rel = ((mg - mc).norm() / mc.norm()).item()
+    assert rel <= 1e-5, rel

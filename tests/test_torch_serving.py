@@ -1,5 +1,5 @@
 """PyTorch port: serving a trained run (``AudioCodec.from_workdir``, the
-byte API, the codec CLI, WAV input) against the JAX package.
+byte API, the codec CLI, file input) against the JAX package.
 
 Two tiny workdirs (W=64 stereo, 128-wide rows, two ConvNeXt stages, float32):
 one written by the JAX package's own checkpoint writers from seeded weights
@@ -351,9 +351,33 @@ def test_wav_input_matches_jax(tmp_path, width, channels, rate):
 
 
 def test_unported_and_unknown_input_types(tmp_path):
-    for suffix in (".flac", ".aiff", ".aif", ".mp3"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            port_audio.load_audio_file(tmp_path / f"song{suffix}")
+    """The four types the WAV-only loader used to refuse (AIFF under both
+    extensions, FLAC, and MP3 headers without a decodable payload) decode
+    as the JAX package decodes them, bit for bit; an unknown type and a
+    broken WAV give None in both."""
+    from meanflow_audio_codec_tpu.data import flac_write as jax_flac
+
+    rng = np.random.default_rng(12)
+    pcm = rng.integers(-30000, 30000, size=(2, 3000))
+    jax_flac.write_flac(tmp_path / "song.flac", pcm, mode="fixed2",
+                        stereo="mid_side")
+    aiff = (b"FORM" + (4 + 8 + 18 + 8 + 8 + 4 * 3000).to_bytes(4, "big")
+            + b"AIFF" + b"COMM" + (18).to_bytes(4, "big")
+            + (2).to_bytes(2, "big") + (3000).to_bytes(4, "big")
+            + (16).to_bytes(2, "big") + b"\x40\x0e\xac\x44" + bytes(6)
+            + b"SSND" + (8 + 4 * 3000).to_bytes(4, "big") + bytes(8)
+            + pcm.T.astype(">i2").tobytes())
+    for suffix in (".aiff", ".aif"):
+        (tmp_path / f"song{suffix}").write_bytes(aiff)
+    (tmp_path / "song.mp3").write_bytes(b"\x00\x01\x02\x03" * 100)
+    for name in ("song.flac", "song.aiff", "song.aif"):
+        got = port_audio.load_audio_file(tmp_path / name)
+        ref = jax_audio.load_audio_file(tmp_path / name)
+        assert got.shape == (2, 3000), name
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(np.round(got * 32768), pcm)
+    assert port_audio.load_audio_file(tmp_path / "song.mp3") is None
+    assert jax_audio.load_audio_file(tmp_path / "song.mp3") is None
     assert port_audio.load_audio_file(tmp_path / "song.ogg") is None
     broken = tmp_path / "broken.wav"
     broken.write_bytes(b"RIFF\x00\x00")

@@ -384,6 +384,20 @@ def test_adamw_and_clip_match_optax(clip_norm):
                                        rtol=1e-5, atol=1e-7)
 
 
+def test_global_norm_is_float64_exact_on_the_cpu():
+    """Five 4096 x 1024 float32 tensors (the largest products at channels
+    512) and a small one: the global norm within float32 rounding of the
+    float64 norm (torch's CPU float32 norms, summed in order, miss it)."""
+    gen = torch.Generator().manual_seed(0)
+    tensors = [1e-3 * torch.randn(4096, 1024, generator=gen)
+               for _ in range(5)] + [torch.randn(512, generator=gen)]
+    want = np.sqrt(sum(np.square(t.numpy().astype(np.float64)).sum()
+                       for t in tensors))
+    got = global_norm(tensors)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.item(), want, rtol=1e-7)
+
+
 # ---------------------------------------------------------------------------
 # the iMF loss and its gradients
 # ---------------------------------------------------------------------------

@@ -368,13 +368,12 @@ def test_geometry_helpers():
 
 @pytest.mark.parametrize("section,values,error", [
     ("dataset", {"dataset": "mnist"}, NotImplementedError),
-    ("dataset", {"data_dir": "."}, NotImplementedError),
     ("method", {"loss_strategy": "diffusion"}, ValueError),
     ("tpu", {"mesh_data": 4}, NotImplementedError),
     ("training", {"checkpoint_format": "orbax"}, NotImplementedError),
     ("model", {"architecture_options": {"channels": 16, "spatial": 4,
                                         "quantized": True}}, ValueError),
-], ids=["mnist", "data_dir", "objective", "devices", "orbax", "quantized"])
+], ids=["mnist", "objective", "devices", "orbax", "quantized"])
 def test_train_flow_refuses_what_is_not_ported(tmp_path, section, values,
                                                error):
     config = config_from_dict(_tiny(tmp_path / "run", **{section: values}))
