@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --transforms-only   # phases 1-3 for MDCT/IMDCT
+    python3 chip_smoke.py --jvp-tape   # the build, then the tape probe
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -19,8 +20,11 @@ and prints no result line):
      a ragged shape (3 rows, W=576, hop 100) and the 10 s clip shape (2 rows
      x 441000 samples, 1721 frames), and both at the train shape (the
      step's tokenize, 32 rows x 32768 samples, and the trainer's sampling
-     decode of its 16 clips, [32, 127, 512]) and a streaming push's (2
-     rows x 4864 samples), rtol 1e-4 / atol 1e-3; the
+     decode of its 16 clips, [32, 127, 512]), a streaming push's (2
+     rows x 4864 samples), the MLP codec's tokenize (256 rows x 65536
+     samples) and decode ([256, 255, 512]), mnist + mdct's (128 rows x 784
+     pixels: 2 frames) and the matrix smoke's (8 rows x 512 samples, W
+     256, hop 128), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels) and ragged shapes, in bf16 and f32, with the stage
      ops' forward-AD tangents, gradients and grad-of-JVP (reverse mode
@@ -39,7 +43,7 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path (and those of phases 7-12 and 9a) is driven with the
+     each path (and those of phases 7-12, 9a, 12a and 12b) is driven with the
      kernels' launch counts (and the count of each GELU+GRN kernel) set to
      0 just before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
@@ -112,6 +116,25 @@ and prints no result line):
      recomputed whole) and with ``tpu.remat``, and the ``fused_stage``
      step without remat (step ms, peak memory),
      and their float32 gradients at one clip within relative L2 1e-5;
+  12a. the other families at full width, each through ``python -m
+     meanflow_audio_codec_torch.train`` (``main``; chunks of 8, 16 steps
+     then ``--resume`` to 32, sampling at the end of each run): the
+     MLP-Mixer codec (method=improved_mean_flow--architecture=mlp_mixer--
+     dataset=audio--tokenization=mdct.json, 321,236,192 parameters, its
+     128 clips cut to 3 = 765 flow rows, the most under 60 GiB: one bare
+     step holds 62.7 GB at 3 clips, 82.0 GB at 4 (``--jvp-tape``); device
+     pool 64 clips), the MLP
+     codec (the mlp config at its 128 clips, 32640 rows, pool 256 clips)
+     and the ablation sweep's largest model (ablation--size=large.json:
+     synthetic mnist, reshape, mlp, mean flow, 16 blocks, latent 1024,
+     batch 128); the workdir's log, checkpoints and parameter count
+     (the JAX package's), finite samples; chunk ms per step, frames/s,
+     peak memory, FLOPs and MFU; the two codecs served by
+     ``AudioCodec.from_workdir``, a 10 s clip through ``roundtrip`` and
+     ``encode_bytes`` / ``decode_bytes`` (v1 8-bit), timed;
+  12b. the matrix: ``tools/matrix_smoke`` over all 48 configs/method=*.json
+     on the card (the JAX smoke's tiny overrides), one line per config,
+     then 48/48;
   13. float32 checks (phase 6) plus each objective's loss and gradients on
      the card against the CPU at one clip (relative L2 <= 1e-5), then
      profiles of one round trip and one bf16 train step with
@@ -119,13 +142,19 @@ and prints no result line):
   14. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
      trainer, codec bytes, codec CLI, streaming, QAT trainer, the corpus
      trainer, its exact stream and serving, each objective, each remat
-     setting), then the result line
+     setting, the three family trainers, the two codecs' serving, the
+     matrix), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
 copied into another checkout of the port, it times that checkout's kernels
-at the same shapes.
+at the same shapes. With ``--jvp-tape`` it builds, then times bare bf16 iMF
+steps (step ms, peak memory) with the stop-gradient JVP's tangent off the
+autograd tape, as the port computes it, and on it, as the port did up to
+PR 8's tree: path A's MLP-Mixer codec at 1-4 clips (each way up to its
+first out-of-memory) and the frontier-v2 step with ``fused_stage`` off and
+on; it prints no result line.
 
 Needs one CUDA card; exits with code 2 when there is none.
 """
@@ -139,6 +168,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -190,6 +220,27 @@ from meanflow_audio_codec_torch.training.train_step import (
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "frontier_v2.json"
+#: the other families' full-width paths: label -> (config, parameters as the
+#: JAX package counts them, batch in clips (None: the config's), device
+#: pool clips (None: the config's default))
+CONFIGS = REPO / "configs"
+FAMILY_RUNS = {
+    # path A: the MLP-Mixer codec, its 128 clips cut to 3 (765 flow rows):
+    # one bare bf16 step holds 62.7 GB (58.4 GiB) at 3 clips and 82.0 GB at
+    # 4 on an H100 80GB HBM3 (--jvp-tape)
+    "mixer_codec": (CONFIGS / ("method=improved_mean_flow--architecture="
+                              "mlp_mixer--dataset=audio--tokenization="
+                              "mdct.json"), 321_236_192, 3, 64),
+    # path B: the MLP codec at its full batch (128 clips, 32640 flow rows)
+    "mlp_codec": (CONFIGS / ("method=improved_mean_flow--architecture=mlp--"
+                            "dataset=audio--tokenization=mdct.json"),
+                  28_262_272, None, 256),
+    # path C: the ablation sweep's largest model (mnist, reshape, mlp)
+    "ablation_large": (CONFIGS / "ablations" / "ablation--size=large.json",
+                       86_005_000, None, None),
+}
+FAMILY_CHUNK = 8  # steps per call: two chunks in each run of 16
+JVP_PROBE_CLIPS = (1, 2, 3, 4)  # path A's batches in the tape probe
 QAT_CONFIG = REPO / "configs" / "frontier_v2_qat.json"
 CORPUS_CONFIG = REPO / "configs" / "corpus_rehearsal.json"
 #: the corpus phase's corpus (make_corpus, mixed family), the loader's timed
@@ -391,9 +442,12 @@ def check_kernels(device: torch.device) -> dict:
     """The MDCT and IMDCT against their plain versions at the codec, ragged
     and 10 s clip shapes, at the train shape (the step's tokenize, 32 rows
     x 32768 samples, and the trainer's sampling decode, [32, 127, 512]) and
-    at a streaming push's (2 rows x 4864 samples, 18 frames); times at the
-    codec shape (keys ``ms``, ...), the 10 s shape (``ms_10s``, ...), the
-    train shape (``ms_train``, ...) and the push (``ms_stream``, ...)."""
+    at a streaming push's (2 rows x 4864 samples, 18 frames), and at the
+    shapes of the other families' paths (the MLP codec's 256 x 65536,
+    mnist's 128 x 784, the matrix smoke's 8 x 512 at W 256); times at the
+    codec shape (keys ``ms``, ...) and at each other shape but the ragged
+    one (``ms_10s``, ``ms_train``, ``ms_stream``, ``ms_mlp_codec``,
+    ``ms_mnist``, ``ms_matrix``, ...)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {"max_abs_err": 0.0}
                for name in ("mdct_cuda", "imdct_cuda")}
@@ -402,7 +456,13 @@ def check_kernels(device: torch.device) -> dict:
             ("10s", 2, 10 * SAMPLE_RATE, 512, 256),
             ("train", 2 * TRAIN_CLIPS, CLIP_LEN, 512, 256),
             # a streaming push: 4096 new samples after the 768 carried
-            ("stream", 2, STREAM_CHUNK + 768, 512, 256)]:
+            ("stream", 2, STREAM_CHUNK + 768, 512, 256),
+            # the MLP codec's step (128 stereo clips x 65536 samples)
+            ("mlp_codec", 256, 65536, 512, 256),
+            # mnist + mdct: 784 pixels, 2 frames of W 512
+            ("mnist", 128, 784, 512, 256),
+            # the matrix smoke's audio (4 stereo clips of 512, W 256)
+            ("matrix", 8, 512, 256, 128)]:
         cfg = MDCTConfig(w, hop)
         nf = num_frames_for_length(length, w, hop)
         out_len = output_length(nf, w, hop)
@@ -1958,6 +2018,280 @@ def corpus_phase(device: torch.device, card: str, scratch: Path) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the other model families and the matrix (phases 12a, 12b)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_samples():
+    """Record what the trainer's sampling writes (the decoded WAV clip or
+    the PNG grid's images) and check it is finite; the PNG itself needs
+    matplotlib, which the card's machine may lack."""
+    from meanflow_audio_codec_torch.training import trainer as trainer_mod
+
+    seen = []
+
+    def check(samples, path) -> None:
+        if not bool(torch.isfinite(torch.as_tensor(samples)).all()):
+            raise AssertionError(f"non-finite samples for {path}")
+        seen.append((Path(path).name, tuple(samples.shape)))
+
+    real_wav, real_png = trainer_mod.write_wav, trainer_mod.plot_samples
+
+    def write_wav(path, audio, *args, **kwargs):
+        check(audio, path)
+        return real_wav(path, audio, *args, **kwargs)
+
+    def plot_samples(samples, path, *args, **kwargs):
+        check(samples, path)
+        return real_png(samples, path, *args, **kwargs)
+
+    trainer_mod.write_wav, trainer_mod.plot_samples = write_wav, plot_samples
+    try:
+        yield seen
+    finally:
+        trainer_mod.write_wav, trainer_mod.plot_samples = real_wav, real_png
+
+
+def family_trainer_path(device: torch.device, card: str, label: str,
+                        workdir: Path) -> tuple[dict, float]:
+    """One of ``FAMILY_RUNS`` through the train CLI's ``main`` at the
+    config's widths: 16 steps in chunks of 8, then ``--resume`` to 32,
+    sampling at the end of each run. Checks the log, the checkpoints, the
+    parameter count and the samples; prints chunk ms per step, frames/s,
+    peak memory, FLOPs and MFU. Returns the launch counts and the chunk ms
+    per step."""
+    path, n_params, clips, pool = FAMILY_RUNS[label]
+    config = load_config(path)
+    batch = clips or config.batch_size
+    args = ["--config", str(path), "--steps-per-call", str(FAMILY_CHUNK),
+            "--workdir", str(workdir)]
+    if clips:
+        args += ["--batch-size", str(clips)]
+    if pool is not None:
+        args += ["--device-pool-clips", str(pool)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    with recorded_samples() as samples, timed_checkpoint_writes() as writes:
+        for extra in (["--n-steps", "16"], ["--resume", "--n-steps", "32"]):
+            if train_cli.main(args + extra) != 0:
+                raise AssertionError(f"{label}: train main {extra} failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    starts = [r for r in records if r.get("event") == "start"]
+    steps = [r for r in records if "event" not in r]
+    if [r["step"] for r in steps] != list(range(32)) or len(starts) != 2:
+        raise AssertionError(f"{label}: steps {[r['step'] for r in steps]}")
+    if {r["param_count"] for r in starts} != {n_params}:
+        raise AssertionError(f"{label}: {starts[0]['param_count']} "
+                             f"parameters, the JAX package counts {n_params}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               and r.get("update_ok") is not False for r in steps):
+        raise AssertionError(f"{label}: a non-finite or rejected step")
+    ckpt = workdir / "checkpoints"
+    for name in ("step_00016.msgpack", "step_00032.msgpack",
+                 "serving_step_00032.msgpack"):
+        if not (ckpt / name).exists():
+            raise AssertionError(f"{label}: no {name}")
+    audio = config.dataset == "audio"
+    ext = "wav" if audio else "png"
+    if [name for name, _ in samples] != [f"step_00016.{ext}",
+                                         f"step_00032.{ext}"]:
+        raise AssertionError(f"{label}: samples {samples}")
+    summary = json.loads((workdir / "summary.json").read_text())
+    # rows of one step: every MDCT frame of every clip (frames layout), or
+    # one example per image (features layout)
+    rows = batch * (num_frames_for_length(65536, 512, 256) if audio else 1)
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in range(0, 32,
+                                                           FAMILY_CHUNK)]
+    ms = statistics.median([chunk_ms[1], chunk_ms[3]])
+    flops = summary["flops_per_step"]
+    peak = profiling.peak_flops(device)
+    tflops = flops / (ms / 1e3) / 1e12
+    mfu = (f"mfu {tflops * 1e12 / peak:.4f}" if peak else
+           "mfu not measured (no peak known for this card)")
+    print(f"{label} launches (16 + 16 steps, 2 samplings): {launches}",
+          flush=True)
+    if launches["mdct_cuda"] < (32 if config.tokenization_strategy == "mdct"
+                                else 0):
+        raise AssertionError(f"{label}: the MDCT did not run on every step")
+    print(f"[{card}] {label} ({path.name}, {n_params} params as JAX counts "
+          f"them, {config.precision}, batch {batch} clips = {rows} flow "
+          f"rows, chunks of {FAMILY_CHUNK}): chunk time per step "
+          f"{' / '.join(f'{v:.3f}' for v in chunk_ms)} ms (chunks 1-4; 1 "
+          f"and 3 begin a run), median of chunks 2 and 4 {ms:.3f} ms, "
+          f"{1e3 / ms:.3f} steps/s, {rows / ms * 1e3:.1f} frames/s; peak "
+          f"memory {peak_gb:.3f} GB; {flops / 1e9:.1f} GFLOP per step, "
+          f"{tflops:.2f} achieved TFLOP/s, {mfu}; wall {wall:.1f} s for "
+          f"both runs; samples {samples} finite", flush=True)
+    _print_writes(writes, label)
+    return launches, ms
+
+
+def family_serving_path(device: torch.device, card: str, label: str,
+                        workdir: Path) -> dict:
+    """Serve a family run (``AudioCodec.from_workdir``) and put a 10 s
+    stereo clip through ``roundtrip`` and ``encode_bytes`` ->
+    ``decode_bytes`` (v1 8-bit), timed. Returns the launch counts."""
+    zero_launches()
+    codec = AudioCodec.from_workdir(workdir)
+    n_params = sum(p.numel() for p in codec.model.parameters())
+    if n_params != FAMILY_RUNS[label][1]:
+        raise AssertionError(f"{label} served: {n_params} parameters")
+    audio = synth_audio(1, 10 * SAMPLE_RATE,
+                        torch.Generator(device).manual_seed(13), device)
+    gen = torch.Generator(device)
+    codec.roundtrip(audio, generator=gen.manual_seed(1))  # warm-up
+    rt_ms, recon = _wall_ms(lambda: codec.roundtrip(
+        audio, generator=gen.manual_seed(1)), BYTES_REPEATS)
+    codec.decode_bytes(codec.encode_bytes(audio, bits=8))  # warm-up
+    enc_ms, data = _wall_ms(lambda: codec.encode_bytes(audio, bits=8),
+                            BYTES_REPEATS)
+    dec_ms, from_bytes = _wall_ms(lambda: codec.decode_bytes(
+        data, generator=gen.manual_seed(4)), BYTES_REPEATS)
+    nf = num_frames_for_length(audio.shape[1], 512, 256)
+    want = (1, (nf - 1) * 256 + 1024, 2)
+    for what, out in (("roundtrip", recon), ("decode_bytes", from_bytes)):
+        if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label} {what}: {tuple(out.shape)}")
+    latents = codec.encode(audio)
+    launches = read_launches()
+    print(f"[{card}] {label} served ({n_params} params; latents "
+          f"{tuple(latents.shape)}), 10 s clip: roundtrip {rt_ms:.3f} ms, "
+          f"encode_bytes {enc_ms:.3f} ms, decode_bytes {dec_ms:.3f} ms "
+          f"(medians of {BYTES_REPEATS}), {len(data)} bytes = "
+          f"{len(data) * 8 / 10 / 1000:.1f} kbps stored v1 8-bit (seeded "
+          f"weights after 32 steps: a rate, not a quality figure); "
+          f"launches {launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched serving {label}")
+    return launches
+
+
+def families_phase(device: torch.device, card: str, scratch: Path) -> dict:
+    """Paths A-C (``FAMILY_RUNS``): train, resume, and serve the codecs;
+    returns the launch counts per path."""
+    paths = {}
+    for label in FAMILY_RUNS:
+        workdir = scratch / label
+        paths[f"{label}_trainer"], _ = family_trainer_path(device, card,
+                                                           label, workdir)
+        torch.cuda.empty_cache()
+        if label.endswith("_codec"):
+            paths[f"{label}_serving"] = family_serving_path(device, card,
+                                                            label, workdir)
+            torch.cuda.empty_cache()
+        shutil.rmtree(workdir)
+    return paths
+
+
+def matrix_phase(device: torch.device, scratch: Path) -> dict:
+    """Path D: ``tools/matrix_smoke`` over all 48 configs/method=*.json on
+    the card; every one must end on a finite loss. Returns the launch
+    counts."""
+    from meanflow_audio_codec_torch.tools import matrix_smoke
+
+    paths = sorted(CONFIGS.glob("method=*.json"))
+    if len(paths) != 48:
+        raise AssertionError(f"{len(paths)} matrix configs, expected 48")
+    zero_launches()
+    with recorded_samples():
+        results = matrix_smoke.run(paths, scratch / "matrix",
+                                   device=str(device))
+    launches = read_launches()
+    passed = sum(r["ok"] for r in results)
+    print(f"{passed}/{len(paths)}; matrix launches {launches}", flush=True)
+    if passed != len(paths):
+        raise AssertionError(f"matrix smoke: {passed}/{len(paths)} passed")
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched in the matrix")
+    return launches
+
+
+def _on_tape_jvp(model, z, tz, t, r, latents, differentiable):
+    """The stop-gradient JVP as the port ran it up to PR 8's tree: one
+    dual forward on the autograd tape, du/dt detached after it (the tape
+    probe's yardstick; ``objectives._jvp`` is the port's)."""
+    import torch.autograd.forward_ad as fwAD
+
+    from meanflow_audio_codec_torch.training.objectives import _time_pair
+
+    with fwAD.dual_level(), stage.differentiable_tangents(differentiable):
+        z_dual = fwAD.make_dual(z, tz.to(z.dtype))
+        t_dual = fwAD.make_dual(t, torch.ones_like(t))
+        out = fwAD.unpack_dual(model(z_dual, _time_pair(t_dual, t_dual - r),
+                                     latents))
+        return out.primal, out.tangent
+
+
+def jvp_tape_probe(device: torch.device, card: str) -> None:
+    """Peak memory and ms of bare bf16 iMF steps with the stop-gradient
+    tangent off the autograd tape (the port) and on it (``_on_tape_jvp``):
+    path A's MLP-Mixer codec at ``JVP_PROBE_CLIPS`` clips of 65536 samples
+    (each way up to its first out-of-memory), and the frontier-v2 step
+    (16 clips x 32768, the config's remat) with ``fused_stage`` off and
+    on."""
+    from meanflow_audio_codec_torch.training import objectives
+    from meanflow_audio_codec_torch.training.trainer import (
+        effective_noise_dimension,
+    )
+
+    port_jvp = objectives._jvp
+    gen = torch.Generator(device=device).manual_seed(21)
+    config = load_config(FAMILY_RUNS["mixer_codec"][0])
+    # the trainer's width: the noise of one frame (W 512 stereo)
+    config = dataclasses.replace(
+        config, noise_dimension=effective_noise_dimension(config))
+    cases = [(f"mixer codec, {clips} clip(s)", clips)
+             for clips in JVP_PROBE_CLIPS]
+    cases += [(f"frontier_v2, fused_stage {'on' if fused else 'off'}", fused)
+              for fused in (False, True)]
+    for tape, jvp in (("off the tape (the port)", port_jvp),
+                      ("on the tape (PR 8's)", _on_tape_jvp)):
+        objectives._jvp = jvp
+        full = False
+        try:
+            for label, arg in cases:
+                if label.startswith("mixer"):
+                    if full:
+                        continue
+                    model = create_flow_model(
+                        config, generator=torch.Generator().manual_seed(0))
+                    state = TrainState(model, make_optimizer(config),
+                                       config.ema_decay, device=device)
+                    adapter = adapter_from_config(
+                        config, create_tokenization_strategy(
+                            config.tokenization_strategy,
+                            config.tokenization_config))
+                    # the guard on, as in frontier-v2, for ``update_ok``
+                    step = make_train_step(create_loss_strategy(config),
+                                           adapter, remat=config.remat,
+                                           skip_nonfinite=True)
+                    batch = synth_audio(arg, 65536, gen, device)
+                else:
+                    state, step = train_setup(device, fused=arg,
+                                              precision="bfloat16")
+                    batch = synth_audio(TRAIN_CLIPS, CLIP_LEN, gen, device)
+                try:
+                    _bare_steps(state, step, batch, gen,
+                                f"tape probe, {label}, tangent {tape}", card)
+                except torch.cuda.OutOfMemoryError:
+                    print(f"[{card}] tape probe, {label}, tangent {tape}: "
+                          "out of memory", flush=True)
+                    full = label.startswith("mixer")
+                del state, step, batch
+                torch.cuda.empty_cache()
+        finally:
+            objectives._jvp = port_jvp
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -1992,6 +2326,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--transforms-only", action="store_true",
                         help="phases 1-3 for the MDCT and IMDCT alone")
+    parser.add_argument("--jvp-tape", action="store_true",
+                        help="the build, then the stop-gradient JVP's "
+                             "tangent off and on the autograd tape alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2025,6 +2362,9 @@ def main() -> int:
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
     if args.transforms_only:
         print(json.dumps({"transforms": check_kernels(device)}), flush=True)
+        return 0
+    if args.jvp_tape:
+        jvp_tape_probe(device, card)
         return 0
     clock = [time.perf_counter()]
 
@@ -2084,6 +2424,12 @@ def main() -> int:
     lap("objectives")
     paths.update(remat_path(device, card))
     lap("remat")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(families_phase(device, card, Path(tmp)))
+        lap("families")
+        paths["matrix"] = matrix_phase(device, Path(tmp))
+    torch.cuda.empty_cache()
+    lap("matrix")
     check_fused_against_plain(device)
     check_against_cpu(device)
     check_train_against_cpu(device)

@@ -11,15 +11,16 @@ card the MDCT and IMDCT go through hand-written CUDA kernels
 versions.
 
 Subpackages:
-  ops       — MDCT/IMDCT (plain versions and CUDA kernel wrappers),
-              tokenizer, time embeddings, dual-time sampler, the latent
-              quantizers and MACB bitstream, the rANS coder's binding
-  models    — ConvNeXt conditional flow and its encoder
-  training  — the token adapter, iMF objective, optimiser, train steps and
-              the trainer (``python -m meanflow_audio_codec_torch.train``)
-  data      — synthetic audio sources, WAV input and the device replay pool
-  tools     — the codec CLI (``python -m
-              meanflow_audio_codec_torch.tools.codec_cli``)
+  ops       — MDCT/IMDCT (direct and FFT plain versions, CUDA kernel
+              wrappers), the MDCT and reshape tokenizers, time
+              embeddings, samplers, the latent quantizers and MACB
+              bitstream, the rANS coder's binding
+  models    — the ConvNeXt, MLP, MLP-Mixer and simple-conv flows
+  training  — the token adapter, the objectives, optimiser, train steps
+              and the trainer (``python -m meanflow_audio_codec_torch.train``)
+  data      — synthetic and file audio, the loaders, MNIST and the device
+              replay pool
+  tools     — the codec CLI, ``make_corpus`` and ``matrix_smoke``
 
 ``codec.AudioCodec`` serves a trained run (``from_workdir``, the byte API);
 ``streaming`` runs it on chunked audio.

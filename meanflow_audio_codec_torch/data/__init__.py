@@ -1,1 +1,1 @@
-"""Training data: synthetic audio sources and the device replay pool."""
+"""Training data: audio sources and loaders, MNIST, the device replay pool."""

@@ -1,1 +1,1 @@
-"""The ConvNeXt flow model family of the port."""
+"""The port's flow model families: ConvNeXt, MLP, MLP-Mixer, simple conv."""

@@ -1,6 +1,7 @@
-"""Building blocks of the ConvNeXt flow.
+"""Building blocks of every model family.
 
-Counterpart of ``meanflow_audio_codec_tpu/models/blocks.py``. Precision
+Counterpart of ``meanflow_audio_codec_tpu/models/blocks.py`` (and of
+``SimpleConvBlock`` in ``simple_conv_flow.py``). Precision
 policy as in the JAX package: parameters stay float32 and each layer casts
 its inputs and parameters to its compute dtype (bfloat16 under the codec's
 "bfloat16"/"mixed" precision); normalisation statistics run in float32.
@@ -87,8 +88,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def adaln_norm(x: torch.Tensor, epsilon: float = 1e-6) -> torch.Tensor:
-    """Scale- and bias-free LayerNorm over the last axis, float32 statistics,
-    result cast back to the input dtype."""
+    """Scale- and bias-free LayerNorm over the last axis, float32 statistics
+    (the mean of a bfloat16 input is taken in float32, as the JAX package's
+    ``_adaln_norm``), result cast back to the input dtype."""
     x32 = x.float()
     centered = x32 - x32.mean(dim=-1, keepdim=True)
     var = centered.square().mean(dim=-1, keepdim=True)
@@ -195,3 +197,93 @@ class FiLM(nn.Module):
             return fused_ln_film(_as_rows(x), scale, shift).reshape(x.shape)
         expand = (slice(None),) + (None,) * (x.ndim - 2)
         return (1.0 + scale[expand]) * x + shift[expand]
+
+
+class MLP(nn.Module):
+    """Dense -> tanh-GELU -> Dense."""
+
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden, compute_dtype=compute_dtype)
+        self.fc2 = Dense(hidden, out, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.fc1(x)))
+
+
+class ConditionalResidualBlock(nn.Module):
+    """adaLN residual block over flat ``[latent ++ noise]`` features: the
+    conditioning MLP emits (scale1, shift, scale2), the residual comes from
+    the noise slice only and the block output is scaled by 1/num_blocks."""
+
+    def __init__(self, input_dimension: int, noise_dimension: int,
+                 condition_dimension: int, num_blocks: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_dimension = input_dimension
+        self.noise_dimension = noise_dimension
+        self.num_blocks = num_blocks
+        dt = dict(compute_dtype=compute_dtype)
+        self.modulation = MLP(condition_dimension, condition_dimension,
+                              2 * input_dimension + noise_dimension, **dt)
+        self.mlp = MLP(input_dimension, input_dimension, noise_dimension, **dt)
+
+    def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        residual = x[:, -self.noise_dimension:]
+        d = self.input_dimension
+        scale1, shift, scale2 = self.modulation(condition).split(
+            (d, d, self.noise_dimension), dim=-1)
+        h = self.mlp((1.0 + scale1) * adaln_norm(x) + shift)
+        return h * (1.0 + scale2) / self.num_blocks + residual
+
+
+class MixerBlock(nn.Module):
+    """MLP-Mixer block on ``[B, tokens, channels]``: adaLN -> token mix (over
+    the swapped axis) -> residual -> adaLN -> channel mix -> residual."""
+
+    def __init__(self, token_mix_dim: int, channel_mix_dim: int,
+                 num_channels: int, num_tokens: int, condition_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dt = dict(compute_dtype=compute_dtype)
+        self.token_modulation = Dense(condition_dim, 2 * num_channels, **dt)
+        self.token_mix = MLP(num_tokens, token_mix_dim, num_tokens, **dt)
+        self.channel_modulation = Dense(condition_dim, 2 * num_channels, **dt)
+        self.channel_mix = MLP(num_channels, channel_mix_dim, num_channels,
+                               **dt)
+
+    @staticmethod
+    def _modulate(x: torch.Tensor, condition: torch.Tensor,
+                  proj: Dense) -> torch.Tensor:
+        scale, shift = proj(condition).chunk(2, dim=-1)
+        return (1.0 + scale[:, None, :]) * adaln_norm(x) + shift[:, None, :]
+
+    def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        h = self._modulate(x, condition, self.token_modulation)
+        x = x + self.token_mix(h.transpose(-1, -2)).transpose(-1, -2)
+        h = self._modulate(x, condition, self.channel_modulation)
+        return x + self.channel_mix(h)
+
+
+class SimpleConvBlock(nn.Module):
+    """3x3 conv -> LN -> FiLM -> GELU -> 3x3 conv, plus the residual (through
+    a 1x1 conv when the channel count changes)."""
+
+    def __init__(self, in_channels: int, channels: int,
+                 condition_dimension: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dt = dict(compute_dtype=compute_dtype)
+        self.conv1 = Conv2d(in_channels, channels, 3, **dt)
+        self.film = FiLM(condition_dimension, channels, **dt)
+        self.conv2 = Conv2d(channels, channels, 3, **dt)
+        self.residual_proj = (Dense(in_channels, channels, **dt)
+                              if in_channels != channels else None)
+
+    def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        h = gelu(self.film(adaln_norm(self.conv1(x)), condition))
+        h = self.conv2(h)
+        residual = (self.residual_proj(x) if self.residual_proj is not None
+                    else x)
+        return h + residual

@@ -151,6 +151,8 @@ class ConditionalConvFlow(nn.Module):
     (``models/remat.py``).
     """
 
+    architecture = "convnet"  # its table in weights.py
+
     def __init__(self, noise_dimension: int, condition_dimension: int,
                  num_blocks: int, latent_dimension: int, use_grn: bool = True,
                  channels: int | None = None, bottleneck_dim: int = 128,
@@ -163,6 +165,7 @@ class ConditionalConvFlow(nn.Module):
         self.noise_dimension = noise_dimension
         self.condition_dimension = condition_dimension
         self.latent_dimension = latent_dimension
+        self.latent_shape = (latent_dimension,)
         self.remat = remat
         self.remat_policy = remat_policy
         segments = remat and remat_policy in SEGMENT_POLICIES

@@ -1,10 +1,15 @@
 """MDCT / IMDCT: configuration, constants and the plain PyTorch versions.
 
-Counterpart of ``meanflow_audio_codec_tpu/ops/mdct.py`` (direct path). The
-functions here are the plain versions of the two CUDA kernels
+Counterpart of ``meanflow_audio_codec_tpu/ops/mdct.py``. ``mdct`` and
+``imdct`` take the direct path (framing + one matmul against the windowed
+basis; ``mdct_direct``/``imdct_direct``) below ``FFT_THRESHOLD`` (W 4096,
+the JAX package's default) and the O(W log W) FFT path (``mdct_fft``/``imdct_fft``, on
+``torch.fft``: cuFFT on the card) from it on, as the JAX package's do off
+the TPU. They are the plain versions of the two CUDA kernels
 (``ops/mdct_cuda.py``, ``ops/imdct_cuda.py``): the CPU runs them, the tests
 hold them against the JAX package, and the chip check holds the kernels
-against them. On the card the tokenizer calls the kernels instead.
+against them. On the card the tokenizer calls the kernels instead, at every
+W (as the JAX tokenizer keeps its Pallas kernels on the TPU).
 
 Transform convention (identical to the JAX package):
 
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 DEFAULT_WINDOW_SIZE = 576
+FFT_THRESHOLD = 4096  # the direct path below this W, the FFT from it
 PRINCEN_BRADLEY_OFFSET = 0.5
 IMDCT_SCALING_FACTOR = 2.0
 
@@ -78,6 +84,21 @@ def _windowed_basis_np(window_size: int) -> np.ndarray:
     wb = (w[:, None] * basis).astype(np.float32)
     wb.setflags(write=False)
     return wb
+
+
+@functools.lru_cache(maxsize=32)
+def _fft_twiddles_np(window_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(pre[2W], post[W]) complex64 twiddles of the 2W-point FFT route:
+    ``X[k] = Re(FFT_2W(x w pre)[k] post[k])`` with ``pre[n] =
+    exp(-i pi n / 2W)`` and ``post[k] = exp(-i pi (k + 1/2)(1/(2W) + 1/2))``.
+    """
+    two_w = 2 * window_size
+    n = np.arange(two_w, dtype=np.float64)
+    k = np.arange(window_size, dtype=np.float64)
+    pre = np.exp(-1j * np.pi * n / two_w)
+    post = np.exp(-1j * np.pi * (k + PRINCEN_BRADLEY_OFFSET)
+                  * (1.0 / two_w + 0.5))
+    return pre.astype(np.complex64), post.astype(np.complex64)
 
 
 @functools.lru_cache(maxsize=16)
@@ -153,7 +174,7 @@ def _overlap_add(frames: torch.Tensor, hop: int, out_len: int) -> torch.Tensor:
 # ============================================================================
 
 
-def mdct(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def mdct_direct(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     """Forward MDCT, ``(..., T) -> (..., n_frames, W)``: framing + matmul."""
     if x.ndim == 0:
         raise ValueError("Input must have at least 1 dimension")
@@ -164,6 +185,37 @@ def mdct(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     return coeffs.reshape(original_shape[:-1] + (nf, w)).to(x.dtype)
 
 
+def _twiddles(window_size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    pre, post = _fft_twiddles_np(window_size)
+    return (torch.tensor(pre, device=device), torch.tensor(post, device=device))
+
+
+def mdct_fft(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+    """Forward MDCT by a 2W-point complex FFT of the windowed, pre-twiddled
+    frames; the same coefficients as :func:`mdct_direct`."""
+    if x.ndim == 0:
+        raise ValueError("Input must have at least 1 dimension")
+    w, hop = config.window_size, config.hop_size
+    x2d, nf, original_shape = _prepare_signal(x.float(), w, hop)
+    frames = _frame(x2d, nf, w, hop)
+    window = torch.tensor(_window_np(w), device=x.device)
+    pre, post = _twiddles(w, x.device)
+    spectrum = torch.fft.fft((frames * window).to(torch.complex64) * pre,
+                             dim=-1)[..., :w]
+    coeffs = (spectrum * post).real
+    return coeffs.reshape(original_shape[:-1] + (nf, w)).to(x.dtype)
+
+
+def _use_fft(config: MDCTConfig) -> bool:
+    return config.window_size >= FFT_THRESHOLD
+
+
+def mdct(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+    """Forward MDCT, ``(..., T) -> (..., n_frames, W)``: the direct path
+    below ``FFT_THRESHOLD``, the FFT path from it on."""
+    return (mdct_fft if _use_fft(config) else mdct_direct)(x, config)
+
+
 def imdct_scale(config: MDCTConfig) -> float:
     """The factor on ``X @ WB^T``: 2/W, times hop/W when normalizing."""
     scale = IMDCT_SCALING_FACTOR / config.window_size
@@ -172,18 +224,43 @@ def imdct_scale(config: MDCTConfig) -> float:
     return scale
 
 
-def imdct(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
-    """Inverse MDCT, ``(..., n_frames, W) -> (..., (nf-1)*hop + 2W)``:
-    matmul + overlap-add."""
+def _coeff_rows(X: torch.Tensor) -> torch.Tensor:
     if X.ndim < 2:
         raise ValueError(
             f"Input must have at least 2 dims (n_frames, window), got {X.shape}")
+    return X.reshape(-1, X.shape[-2], X.shape[-1]).float()
+
+
+def imdct_direct(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+    """Inverse MDCT, ``(..., n_frames, W) -> (..., (nf-1)*hop + 2W)``:
+    matmul + overlap-add."""
+    x3d = _coeff_rows(X)
     w, hop = config.window_size, config.hop_size
-    original_shape = X.shape
-    x3d = X.reshape(-1, original_shape[-2], original_shape[-1]).float()
-    nf = x3d.shape[1]
-    out_len = output_length(nf, w, hop)
+    out_len = output_length(x3d.shape[1], w, hop)
     frames = imdct_scale(config) * torch.matmul(
         x3d, windowed_basis(w, X.device, transposed=True))
     signal = _overlap_add(frames, hop, out_len)
-    return signal.reshape(original_shape[:-2] + (out_len,)).to(X.dtype)
+    return signal.reshape(X.shape[:-2] + (out_len,)).to(X.dtype)
+
+
+def imdct_fft(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+    """Inverse MDCT by a 2W-point inverse FFT: ``y[n] = scale Re(conj(pre[n])
+    ifft(conj(post) X, zero-padded to 2W)[n]) w[n]``, overlap-added; the
+    ``2W`` of the ifft's normalisation folds into the scale."""
+    x3d = _coeff_rows(X)
+    w, hop = config.window_size, config.hop_size
+    out_len = output_length(x3d.shape[1], w, hop)
+    window = torch.tensor(_window_np(w), device=X.device)
+    pre, post = _twiddles(w, X.device)
+    a = torch.nn.functional.pad(x3d.to(torch.complex64) * post.conj(), (0, w))
+    y = torch.fft.ifft(a, dim=-1) * (imdct_scale(config) * 2 * w)
+    frames = (y * pre.conj()).real * window
+    signal = _overlap_add(frames, hop, out_len)
+    return signal.reshape(X.shape[:-2] + (out_len,)).to(X.dtype)
+
+
+def imdct(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+    """Inverse MDCT, ``(..., n_frames, W) -> (..., (nf-1)*hop + 2W)``: the
+    direct path below ``FFT_THRESHOLD``, the FFT path from it on.
+    """
+    return (imdct_fft if _use_fft(config) else imdct_direct)(X, config)

@@ -1,1 +1,1 @@
-"""Command-line tools: ``codec_cli`` (WAV <-> .macb bitstream)."""
+"""Command-line tools: ``codec_cli``, ``make_corpus``, ``matrix_smoke``."""

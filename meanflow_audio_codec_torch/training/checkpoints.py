@@ -105,18 +105,20 @@ def save_serving_checkpoint(state, checkpoint_dir: Path | str,
     tensors = state.ema if state.ema is not None else state.params
     payload = {"step": step,
                "params": weights.torch_to_flax(dict(zip(state.names,
-                                                        tensors)))}
+                                                        tensors)),
+                                               state.model.architecture)}
     path = checkpoint_dir / f"serving_step_{step:05d}.msgpack"
     path.write_bytes(serialization.msgpack_serialize(payload))
     return path
 
 
-def load_serving_checkpoint(path: Path | str
+def load_serving_checkpoint(path: Path | str, architecture: str = "convnet"
                             ) -> tuple[int, dict[str, torch.Tensor]]:
-    """``(step, state_dict)`` of a serving checkpoint, by the port's
-    parameter names."""
+    """``(step, state_dict)`` of a serving checkpoint of an
+    ``architecture`` model, by the port's parameter names."""
     payload = read_checkpoint(path)
-    return int(payload["step"]), weights.flax_to_torch(payload["params"])
+    return int(payload["step"]), weights.flax_to_torch(payload["params"],
+                                                       architecture)
 
 
 def is_serving_checkpoint(path: Path | str) -> bool:
@@ -157,7 +159,8 @@ def count_params(state) -> int:
 
 
 def _param_shapes(state) -> dict:
-    tree = weights.torch_to_flax(dict(zip(state.names, state.params)))
+    tree = weights.torch_to_flax(dict(zip(state.names, state.params)),
+                                 state.model.architecture)
 
     def flat(node, prefix=""):
         for key, value in node.items():

@@ -178,6 +178,35 @@ def _pyplot():
     return plt
 
 
+def plot_samples(samples: np.ndarray, path: Path | str,
+                 grid: tuple[int, int] | None = None) -> None:
+    """Save a grid PNG of image samples (``[N, H, W]``, or ``[N, D]`` flat:
+    cropped to the largest square, as an MDCT round trip of an image carries
+    overlap-add padding)."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        side = int(np.sqrt(samples.shape[1]))
+        samples = samples[:, :side * side].reshape(-1, side, side)
+    n = samples.shape[0]
+    if grid is None:
+        cols = int(np.ceil(np.sqrt(n)))
+        rows = int(np.ceil(n / cols))
+    else:
+        rows, cols = grid
+    fig, axes = plt.subplots(rows, cols, figsize=(cols * 1.5, rows * 1.5))
+    axes = np.atleast_1d(axes).ravel()
+    for i, ax in enumerate(axes):
+        ax.axis("off")
+        if i < n:
+            ax.imshow(samples[i], cmap="gray")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(path, bbox_inches="tight", dpi=100)
+    plt.close(fig)
+
+
 def plot_loss_curve(log_path: Path | str, out_path: Path | str,
                     key: str = "loss") -> None:
     agg = MetricsAggregator.from_log(log_path)

@@ -13,7 +13,10 @@ flow; counterpart of ``meanflow_audio_codec_tpu/training/objectives.py``.
 
 The JVP is PyTorch's forward-mode AD (``torch.autograd.forward_ad``): z gets
 the tangent and t the tangent 1, so h = t - r gets tangent 1 from the
-autodiff itself. With ``use_stop_gradient=False`` the gradient also flows
+autodiff itself. With the stop-gradient (the default) the dual forward runs
+off the autograd tape and u comes from a plain forward (``_jvp``), so no
+tangent is held for the backward, as in JAX. With
+``use_stop_gradient=False`` the gradient also flows
 through du/dt (reverse mode over the forward mode): the iMF boundary forward
 then keeps its graph, and the fused stage ops record their tangent rules
 (``ops.stage.differentiable_tangents``). The model signature is
@@ -101,8 +104,10 @@ class Objective:
             out["t"], out["r"] = t, r
         qat = self.latent_qat
         if qat is not None and qat.mode == "noise":
+            # the shape of encode's output, which the quantizer sees:
+            # [B, latent] or the mixer's [B, tokens, latent]
             out["qat_noise"] = (qat_noise if qat_noise is not None else
-                                qat.draw((batch, model.latent_dimension),
+                                qat.draw((batch, *model.latent_shape),
                                          generator, x.device))
         return out
 
@@ -167,13 +172,24 @@ class FlowMatchingObjective(Objective):
 
 
 def _jvp(model, z, tz, t, r, latents, differentiable: bool):
-    """(u, du/dt) of ``model`` at (z, [t, t - r]) along (tz, 1, 0)."""
-    with fwAD.dual_level(), stage.differentiable_tangents(differentiable):
+    """(u, du/dt) of ``model`` at (z, [t, t - r]) along (tz, 1, 0).
+
+    ``differentiable`` False (the stop-gradient) takes du/dt from a dual
+    forward under ``no_grad`` and u from a plain forward that keeps its
+    graph: a dual forward on the tape would record the tangent branch too
+    (the parameters require grad) and keep the tangent of every saved
+    activation until it ends, about doubling the step's memory, where JAX
+    keeps neither. Only the grad-of-JVP records the dual forward."""
+    with (contextlib.nullcontext() if differentiable else torch.no_grad()), \
+            fwAD.dual_level(), stage.differentiable_tangents(differentiable):
         z_dual = fwAD.make_dual(z, tz.to(z.dtype))
         t_dual = fwAD.make_dual(t, torch.ones_like(t))
         out = fwAD.unpack_dual(model(z_dual, _time_pair(t_dual, t_dual - r),
                                      latents))
-        return out.primal, out.tangent
+        if differentiable:
+            return out.primal, out.tangent
+        dudt = out.tangent
+    return model(z, _time_pair(t, t - r), latents), dudt
 
 
 @dataclass(frozen=True)

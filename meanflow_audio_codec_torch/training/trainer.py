@@ -10,13 +10,15 @@ guard on the device) -> JSONL logging and profiling (with MFU) -> periodic
 sampling with real encoder latents and the EMA weights -> checkpoints with
 retention -> the serving checkpoint and the summary. The workdir layout,
 the log records and the checkpoints are the JAX package's, so either
-package resumes the other's run.
+package resumes the other's run. The data is audio (frames layout with the
+MDCT, features layout with the reshape tokenizer) or MNIST (features
+layout; ``data/mnist.py``), whose samples are written as a PNG grid.
 
 Every objective of the JAX package trains (autoencoder, flow matching,
 mean flow, improved mean flow; the learned loss weighting, whose polynomial
 the factory adds to the model's parameters; latent QAT), and ``tpu.remat`` recomputes the
 loss in the backward pass. What the port's trainer does not take yet raises,
-naming the ROADMAP item: mnist, more than one device, and orbax
+naming the ROADMAP item: more than one device and orbax
 checkpoints. Noise, t and r come from one
 ``torch.Generator`` on the state's device seeded with ``config.seed``; like
 the JAX key, it is not saved, so a resumed run draws anew from the seed.
@@ -42,12 +44,13 @@ from meanflow_audio_codec_torch.data.audio import (
     write_wav,
 )
 from meanflow_audio_codec_torch.data.device_pool import DeviceReplayPool
+from meanflow_audio_codec_torch.data.mnist import load_mnist
 from meanflow_audio_codec_torch.device import resolve_device
 from meanflow_audio_codec_torch.models.factories import create_flow_model
 from meanflow_audio_codec_torch.ops.losses import ema
-from meanflow_audio_codec_torch.ops.mdct import num_frames_for_length
 from meanflow_audio_codec_torch.ops.sampling import sample, sample_dual_time
 from meanflow_audio_codec_torch.ops.tokenize import (
+    compute_token_shape,
     create_tokenization_strategy,
 )
 from meanflow_audio_codec_torch.training import checkpoints
@@ -61,6 +64,7 @@ from meanflow_audio_codec_torch.training.logging import (
     generate_config_diff,
     generate_training_summary,
     plot_loss_curve,
+    plot_samples,
     save_json,
 )
 from meanflow_audio_codec_torch.training.objectives import create_loss_strategy
@@ -94,14 +98,6 @@ def input_example_shape(config: CodecConfig) -> tuple[int, ...]:
     return (784,)  # flat MNIST
 
 
-def compute_token_shape(strategy, input_shape: tuple[int, ...]
-                        ) -> tuple[int, int]:
-    """(n_tokens, token_dim) of the MDCT tokens of one example."""
-    w, hop = strategy.config.window_size, strategy.config.hop_size
-    channels = input_shape[1] if len(input_shape) > 1 else 1
-    return num_frames_for_length(input_shape[0], w, hop), w * channels
-
-
 def effective_noise_dimension(config: CodecConfig) -> int:
     """Model input width after tokenization and flattening."""
     strategy = create_tokenization_strategy(config.tokenization_strategy,
@@ -113,17 +109,12 @@ def effective_noise_dimension(config: CodecConfig) -> int:
     return n_tokens * token_dim
 
 
-def _check_data(config: CodecConfig) -> None:
-    """Raise on data the port does not read yet."""
-    if config.dataset != "audio":
-        raise NotImplementedError(
-            f"dataset {config.dataset!r} is not ported yet (ROADMAP queue 1 "
-            "item 9: the port trains on audio only)")
-
-
 def _check_ported(config: CodecConfig) -> None:
-    """Raise on what the port's trainer does not take yet."""
-    _check_data(config)
+    """Raise, before anything is written, on a config the trainer cannot
+    run: an unknown tokenization or objective, and what the port's trainer
+    does not take yet."""
+    create_tokenization_strategy(config.tokenization_strategy,
+                                 config.tokenization_config)
     tpu = config.source.get("tpu") or {}
     if tpu.get("mesh_data", -1) > 1 or tpu.get("mesh_model", 1) > 1:
         raise NotImplementedError(
@@ -144,12 +135,14 @@ def _on_disk(config: CodecConfig) -> bool:
 
 
 def make_dataset_iterator(config: CodecConfig) -> Iterator[np.ndarray]:
-    """Infinite iterator of raw (untokenized) float32 audio batches
+    """Infinite iterator of raw (untokenized) float32 batches. Audio,
     ``[B, frame_size, 2]``: the audio files under an existing ``data_dir``
     (``build_audio_pipeline``), else the synthetic source of the config's
     ``synthetic_family``, through a host replay pool when ``pool_batches``
-    is set, else through a prefetch thread."""
-    _check_data(config)
+    is set, else through a prefetch thread. Any other dataset is MNIST,
+    ``[B, 784]`` in [-1, 1], as in the JAX package."""
+    if config.dataset != "audio":
+        return load_mnist(config.batch_size, seed=config.seed)[0]
     tok_cfg = config.tokenization_config
     frame_size = tok_cfg.get("frame_size", 65536)
     if _on_disk(config):
@@ -168,10 +161,12 @@ def make_dataset_iterator(config: CodecConfig) -> Iterator[np.ndarray]:
 
 
 def device_pool_clips(config: CodecConfig) -> int:
-    """The device replay pool's size in clips: the config's
-    ``device_pool_clips``, by default 1024 for synthetic audio and 0 (the
-    exact stream) for a corpus, where the pool would turn the stream into
-    with-replacement draws of int16 clips unasked."""
+    """The device replay pool's size in clips: 0 (none) for MNIST; for audio
+    the config's ``device_pool_clips``, by default 1024 for synthetic audio
+    and 0 (the exact stream) for a corpus, where the pool would turn the
+    stream into with-replacement draws of int16 clips unasked."""
+    if config.dataset != "audio":
+        return 0
     return config.tokenization_config.get(
         "device_pool_clips", 0 if _on_disk(config) else 1024)
 
@@ -318,8 +313,12 @@ def train_flow(config: CodecConfig, resume: bool = False,
             generator=torch.Generator(device).manual_seed(config.sample_seed))
         decoded = adapter.detokenize_flat(
             flat, token_shape, gains=gains if adapter.gain_norm else None)
-        write_wav(samples_dir / f"step_{step:05d}.wav",
-                  decoded[0].float().cpu().numpy(), sample_rate=SAMPLE_RATE)
+        decoded = decoded[:16].float().cpu().numpy()
+        if config.dataset == "audio":
+            write_wav(samples_dir / f"step_{step:05d}.wav", decoded[0],
+                      sample_rate=SAMPLE_RATE)
+        else:
+            plot_samples(decoded[:16], samples_dir / f"step_{step:05d}.png")
 
     # ---- hot loop -----------------------------------------------------------
     chunk_fns = {steps_per_call: step_fn}
@@ -453,7 +452,8 @@ def load_flow_state(checkpoint_path: Path | str, config: CodecConfig,
     optimizer = make_optimizer(config)
     ema_decay = config.ema_decay or 0.999
     if checkpoints.is_serving_checkpoint(checkpoint_path):
-        step, params = checkpoints.load_serving_checkpoint(checkpoint_path)
+        step, params = checkpoints.load_serving_checkpoint(
+            checkpoint_path, model.architecture)
         model.load_state_dict(params, strict=True)
         state = TrainState(model, optimizer, ema_decay, device=device)
         state.step = step

@@ -1,14 +1,15 @@
-"""Carry Flax parameters of the ConvNeXt flow, and whole train states,
+"""Carry Flax parameters of every model family, and whole train states,
 across between the JAX package and the port.
 
 ``flax_to_torch`` maps a Flax param tree (nested dicts of arrays, as
 ``model.init(...)["params"]`` or a checkpoint gives it) to a ``state_dict``
-of :class:`~meanflow_audio_codec_torch.models.conv_flow.ConditionalConvFlow`;
-``torch_to_flax`` is its inverse. ``train_state_to_flax`` and
-``train_state_from_flax`` map the port's ``TrainState`` to and from the
-state dict of the JAX package's ``TrainState`` (``step``, ``params``,
-``opt_state``, ``ema_params``, ``ema_decay``), the tree its msgpack
-checkpoints hold.
+of the port's model of the family ``architecture`` names (a config's
+``architecture``, or ``"mlp_mixer_autoencoder"``; each model class states
+its own); ``torch_to_flax`` is its inverse.
+``train_state_to_flax`` and ``train_state_from_flax`` map the port's
+``TrainState`` to and from the state dict of the JAX package's
+``TrainState`` (``step``, ``params``, ``opt_state``, ``ema_params``,
+``ema_decay``), the tree its msgpack checkpoints hold.
 Layouts: a Dense kernel ``[in, out]`` becomes a Linear weight ``[out, in]``;
 a 1x1 conv kernel ``[1, 1, in, out]`` becomes a Linear weight too (the port
 runs 1x1 convs as Dense layers on channels-last activations); a spatial conv
@@ -25,33 +26,96 @@ import numpy as np
 import torch
 from torch import nn
 
-# flax name -> (torch name, kind of module it names; None for a parameter)
+_WEIGHTING = {"loss_weighting": ("loss_weighting", "loss_weighting")}
+_LAYER = {"kernel": ("weight", None), "bias": ("bias", None)}
+
+# kind of module -> {flax name: (torch name, kind of module it names; None
+# for a parameter)}; "{i}" stands for the index of a list of modules
 _CHILDREN = {
+    # the ConvNeXt flow (its encoder's table depends on the tree: _children)
     "flow": {"latent_proj": ("latent_proj", "dense"),
              "encoder": ("encoder", "encoder"),
+             "blocks_{i}": ("stages.{i}", "stage"),
              # the learned loss weighting's polynomial (ops/losses.py)
-             "loss_weighting": ("loss_weighting", "loss_weighting")},
+             **_WEIGHTING},
     "stage": {"Dense_0": ("bottleneck_in", "dense"),
               "Dense_1": ("lift", "dense"),
-              "Conv_0": ("lift_conv", "dense"),
+              "Conv_0": ("lift_conv", "conv1x1"),
               "FiLM_0": ("film", "film"),
               "ConvNeXtBlock_0": ("block", "block"),
-              "Conv_1": ("unlift_conv", "dense"),
+              "Conv_1": ("unlift_conv", "conv1x1"),
               "Dense_2": ("bottleneck_out", "dense"),
               "Dense_3": ("out", "dense")},
     "film": {"Dense_0": ("proj", "dense")},
     "block": {"Conv_0": ("conv", "conv"),
-              "Conv_1": ("expand", "dense"),
+              "Conv_1": ("expand", "conv1x1"),
               "GlobalResponseNormalization_0": ("grn", "grn"),
-              "Conv_2": ("contract", "dense"),
+              "Conv_2": ("contract", "conv1x1"),
               "layer_scale_gamma": ("layer_scale", None)},
-    "dense": {"kernel": ("weight", None), "bias": ("bias", None)},
-    "conv": {"kernel": ("weight", None), "bias": ("bias", None)},
+    # the MLP flow
+    "mlp_flow": {"encoder": ("encoder", "mlp_encoder"),
+                 "blocks_{i}": ("blocks.{i}", "residual_block"),
+                 **_WEIGHTING},
+    "mlp_encoder": {"MLP_0": ("mlp", "mlp")},
+    "residual_block": {"MLP_0": ("modulation", "mlp"),
+                       "MLP_1": ("mlp", "mlp")},
+    "mlp": {"Dense_0": ("fc1", "dense"), "Dense_1": ("fc2", "dense")},
+    # the MLP-Mixer flow and autoencoder
+    "mixer_flow": {"stages_{i}": ("stages.{i}", "mixer_stage"),
+                   "latent_proj": ("latent_proj", "dense"),
+                   "encoder": ("encoder", "mixer_encoder"),
+                   **_WEIGHTING},
+    "mixer_stage": {"Dense_0": ("lift", "dense"),
+                    "MixerBlock_0": ("block", "mixer_block"),
+                    "Dense_1": ("out", "dense")},
+    "mixer_block": {"Dense_0": ("token_modulation", "dense"),
+                    "MLP_0": ("token_mix", "mlp"),
+                    "Dense_1": ("channel_modulation", "dense"),
+                    "MLP_1": ("channel_mix", "mlp")},
+    "mixer_encoder": {"Dense_0": ("context", "dense"),
+                      "latent_queries": ("latent_queries", None),
+                      "condition_emb": ("condition_emb", None),
+                      "MixerBlock_0": ("block", "mixer_block")},
+    "mixer_decoder": {"output_queries": ("output_queries", None),
+                      "condition_emb": ("condition_emb", None),
+                      "MixerBlock_0": ("block", "mixer_block"),
+                      "Dense_0": ("out", "dense")},
+    "mixer_autoencoder": {"encoder": ("encoder", "mixer_encoder"),
+                          "decoder": ("decoder", "mixer_decoder")},
+    # the simple conv flow
+    "simple_conv_flow": {
+        "latent_proj": ("latent_proj", "dense"),
+        "encoder_head": ("encoder_head", "dense"),
+        **{name: (name, "simple_conv_block")
+           for name in ("down1", "down2", "mid", "up2", "up1")},
+        "skip_proj": ("skip_proj", "conv1x1"),
+        "out_conv": ("out_conv", "conv1x1"),
+        "lift": ("lift", "dense"), "unlift": ("unlift", "dense"),
+        **_WEIGHTING},
+    "simple_conv_block": {"Conv_0": ("conv1", "conv"),
+                          "FiLM_0": ("film", "film"),
+                          "Conv_1": ("conv2", "conv"),
+                          "Conv_2": ("residual_proj", "conv1x1")},
+    # layers
+    "dense": _LAYER,
+    "conv": _LAYER,
+    "conv1x1": _LAYER,
     "grn": {"gamma": ("gamma", None), "beta": ("beta", None)},
     "loss_weighting": {"poly": ("poly", None)},
 }
 
-_STAGE = re.compile(r"blocks_(\d+)$")
+
+#: the table of each family, by its ``architecture``
+ROOTS = {"convnet": "flow", "mlp": "mlp_flow", "mlp_mixer": "mixer_flow",
+         "simple_conv": "simple_conv_flow",
+         "mlp_mixer_autoencoder": "mixer_autoencoder"}
+
+
+def _root(architecture: str) -> str:
+    if architecture not in ROOTS:
+        raise ValueError(f"no weight table for architecture "
+                         f"{architecture!r}; known: {sorted(ROOTS)}")
+    return ROOTS[architecture]
 
 
 def _encoder_children(tree: Mapping) -> dict:
@@ -66,19 +130,28 @@ def _children(kind: str, tree: Mapping) -> dict:
     return _encoder_children(tree) if kind == "encoder" else _CHILDREN[kind]
 
 
+def _lookup(table: dict, name: str) -> tuple[str, str | None] | None:
+    """(torch name, kind) of the Flax child ``name`` in ``table``."""
+    if name in table:
+        return table[name]
+    for key, (torch_name, child) in table.items():
+        if "{i}" in key:
+            match = re.fullmatch(key.replace("{i}", r"(\d+)"), name)
+            if match:
+                return torch_name.replace("{i}", match.group(1)), child
+    return None
+
+
 def _walk(tree: Mapping, kind: str, prefix: tuple[str, ...], flax_path: str
           ) -> Iterator[tuple[str, str, str, np.ndarray]]:
     table = _children(kind, tree)
     for name, value in tree.items():
         where = f"{flax_path}/{name}" if flax_path else name
-        stage = _STAGE.match(name) if kind == "flow" else None
-        if stage:
-            torch_name, child = f"stages.{stage.group(1)}", "stage"
-        elif name in table:
-            torch_name, child = table[name]
-        else:
+        entry = _lookup(table, name)
+        if entry is None:
             raise KeyError(f"Flax leaf {where!r} has no counterpart in the "
-                           "port's ConditionalConvFlow")
+                           "port's model")
+        torch_name, child = entry
         if child is None:
             if isinstance(value, Mapping):
                 raise KeyError(f"Flax entry {where!r} is a module, expected "
@@ -96,15 +169,17 @@ def _convert(kind: str, leaf: str, value: np.ndarray) -> np.ndarray:
         return value
     if kind == "conv":
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    if value.ndim == 4:  # 1x1 conv run as Dense
+    if kind == "conv1x1":  # run as Dense
         value = value[0, 0]
     return value.T  # [in, out] -> [out, in]
 
 
-def flax_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
-    """Flax ``ConditionalConvFlow`` params -> port ``state_dict`` (float32)."""
+def flax_to_torch(params: Mapping, architecture: str = "convnet"
+                  ) -> dict[str, torch.Tensor]:
+    """Flax params of an ``architecture`` model -> the port's ``state_dict``
+    (float32)."""
     state = {}
-    for key, kind, leaf, value in _walk(params, "flow", (), ""):
+    for key, kind, leaf, value in _walk(params, _root(architecture), (), ""):
         array = np.ascontiguousarray(_convert(kind, leaf, value),
                                      dtype=np.float32)
         state[key] = torch.from_numpy(array)
@@ -113,7 +188,8 @@ def flax_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
 
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Load Flax params into ``model``; raises on any unused or missing leaf."""
-    model.load_state_dict(flax_to_torch(params), strict=True)
+    model.load_state_dict(flax_to_torch(params, model.architecture),
+                          strict=True)
     return model
 
 
@@ -122,49 +198,53 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
 # ---------------------------------------------------------------------------
 
 
-def _reverse_table(kind: str, has_lift: bool) -> dict:
-    """torch name -> (flax name, kind of module it names) for ``kind``."""
-    table = _children(kind, {"Dense_1": None} if has_lift else {})
-    return {torch_name: (flax_name, child)
-            for flax_name, (torch_name, child) in table.items()}
-
-
-def _flax_path(name: str, has_lift: bool) -> tuple[list[str], str, str]:
-    """(flax path, kind of the leaf's module, flax name of that module) of
-    the port parameter ``name``."""
-    tokens, path, kind, module = name.split("."), [], "flow", ""
-    i = 0
-    while i < len(tokens):
-        if kind == "flow" and tokens[i] == "stages" and i + 1 < len(tokens):
-            path.append(f"blocks_{tokens[i + 1]}")
-            kind, module, i = "stage", path[-1], i + 2
+def _reverse_match(table: dict, tokens: list[str], i: int
+                   ) -> tuple[str, str | None, int] | None:
+    """(flax name, kind, tokens used) of the torch name at ``tokens[i:]``."""
+    for flax_name, (torch_name, child) in table.items():
+        n = torch_name.count(".") + 1
+        candidate = ".".join(tokens[i:i + n])
+        if "{i}" not in torch_name:
+            if candidate == torch_name:
+                return flax_name, child, n
             continue
-        table = _reverse_table(kind, has_lift)
-        key = next((k for k in (".".join(tokens[i:i + 2]), tokens[i])
-                    if k in table), None)
-        if key is None:
+        match = re.fullmatch(re.escape(torch_name).replace(
+            re.escape("{i}"), r"(\d+)"), candidate)
+        if match:
+            return flax_name.replace("{i}", match.group(1)), child, n
+    return None
+
+
+def _flax_path(name: str, root: str, has_lift: bool
+               ) -> tuple[list[str], str]:
+    """(flax path, kind of the leaf's module) of the port parameter
+    ``name`` of a model of kind ``root``."""
+    tokens, path, kind, i = name.split("."), [], root, 0
+    while i < len(tokens):
+        table = _children(kind, {"Dense_1": None} if has_lift else {})
+        entry = _reverse_match(table, tokens, i)
+        if entry is None:
             raise KeyError(f"port parameter {name!r} has no Flax counterpart")
-        flax_name, child = table[key]
+        flax_name, child, used = entry
         path.append(flax_name)
-        i += len(key.split("."))
+        i += used
         if child is None:
             if i != len(tokens):
                 raise KeyError(f"port parameter {name!r} has no Flax "
                                "counterpart")
-            return path, kind, module
-        kind, module = child, flax_name
+            return path, kind
+        kind = child
     raise KeyError(f"port name {name!r} names a module, not a parameter")
 
 
-def _unconvert(kind: str, module: str, leaf: str,
-               value: np.ndarray) -> np.ndarray:
+def _unconvert(kind: str, leaf: str, value: np.ndarray) -> np.ndarray:
     """The inverse of :func:`_convert`."""
     if leaf != "kernel":
         return value
     if kind == "conv":
         return value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
     value = value.T  # [out, in] -> [in, out]
-    if module.startswith("Conv_"):  # a 1x1 conv, run as a Dense layer
+    if kind == "conv1x1":  # run as a Dense layer
         value = value[None, None]
     return value
 
@@ -175,20 +255,22 @@ def _sorted_tree(tree: dict) -> dict:
             for k, v in sorted(tree.items())}
 
 
-def torch_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
-    """Port ``state_dict`` (or any mapping of its parameter names) -> Flax
-    ``ConditionalConvFlow`` param tree of float32 numpy arrays; the inverse
-    of :func:`flax_to_torch`."""
+def torch_to_flax(state: Mapping[str, torch.Tensor],
+                  architecture: str = "convnet") -> dict:
+    """Port ``state_dict`` of an ``architecture`` model (or any mapping of
+    its parameter names) -> its Flax param tree, of float32 numpy arrays;
+    the inverse of :func:`flax_to_torch`."""
+    root = _root(architecture)
     has_lift = any(name.startswith("encoder.lift.") for name in state)
     tree: dict = {}
     for name, tensor in state.items():
-        path, kind, module = _flax_path(name, has_lift)
+        path, kind = _flax_path(name, root, has_lift)
         value = tensor.detach().to("cpu", torch.float32).numpy()
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(
-            _unconvert(kind, module, path[-1], value))
+            _unconvert(kind, path[-1], value))
     return _sorted_tree(tree)
 
 
@@ -216,7 +298,8 @@ def train_state_to_flax(state) -> dict:
     count = np.asarray(state.step, dtype=np.int32)
 
     def tree(tensors):
-        return torch_to_flax(dict(zip(state.names, tensors)))
+        return torch_to_flax(dict(zip(state.names, tensors)),
+                             state.model.architecture)
 
     optimizer = state.optimizer
     return {
@@ -260,9 +343,11 @@ def train_state_from_flax(tree: Mapping, state) -> dict:
     _same_structure(tree, train_state_to_flax(state), "checkpoint")
     opt = tree["opt_state"]
     adam = (opt["1"] if state.optimizer.grad_clip_norm else opt)["0"]
+    arch = state.model.architecture
     return {"step": int(np.asarray(tree["step"])),
-            "params": flax_to_torch(tree["params"]),
-            "mu": flax_to_torch(adam["mu"]), "nu": flax_to_torch(adam["nu"]),
-            "ema": (flax_to_torch(tree["ema_params"])
+            "params": flax_to_torch(tree["params"], arch),
+            "mu": flax_to_torch(adam["mu"], arch),
+            "nu": flax_to_torch(adam["nu"], arch),
+            "ema": (flax_to_torch(tree["ema_params"], arch)
                     if tree["ema_params"] is not None else None),
             "ema_decay": float(np.asarray(tree["ema_decay"]))}

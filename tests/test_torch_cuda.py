@@ -15,7 +15,13 @@ bf16 outputs at rtol / atol 1e-2 (one bf16 rounding step, 2**-7 relative,
 flips where the f32 values differ in their last bits). The full-width
 corpus config (configs/corpus_rehearsal.json, channels 512) takes one bf16
 step on a batch the native loader reads from a FLAC corpus, and one float32
-step against the CPU's (relative L2 1e-5 of Adam's first moments).
+step against the CPU's (relative L2 1e-5 of Adam's first moments). The MLP,
+MLP-Mixer and simple-conv flows take one bf16 step on the card against the
+same step on the CPU (loss rtol 2e-2, Adam's first moments within relative
+L2 5e-2: both devices round every product's inputs and outputs to bf16,
+~4e-3 each, but accumulate in other orders, through the JVP's tangents
+too); the FFT MDCT/IMDCT (cuFFT) at W 4096 against the CPU's at the
+transforms' rtol 1e-4 / atol 1e-3.
 """
 
 import pytest
@@ -734,3 +740,113 @@ def test_full_width_corpus_step_on_the_card_matches_the_cpu(device):
     torch.testing.assert_close(gg, gc, rtol=1e-4, atol=0)
     rel = ((mg - mc).norm() / mc.norm()).item()
     assert rel <= 1e-5, rel
+
+
+# ---------------------------------------------------------------------------
+# the other model families and the FFT MDCT
+# ---------------------------------------------------------------------------
+
+FAMILY_CONFIGS = {
+    "mlp": ("mlp", {}, "mnist", "reshape", {}),
+    "mlp_mixer": ("mlp_mixer", {"token_mix_dim": 64, "channel_mix_dim": 32,
+                                "num_channels": 8, "num_latent_tokens": 4,
+                                "encoder_context_tokens": 8},
+                  "audio", "mdct", {"frame_size": 4096, "window_size": 64,
+                                    "coeff_scale": 4.0, "gain_norm": 0.05}),
+    "simple_conv": ("simple_conv", {}, "mnist", "reshape", {}),
+}
+
+
+def _family_step(where, family):
+    from meanflow_audio_codec_torch.configs import config_from_dict
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import (
+        compute_token_shape,
+        create_tokenization_strategy,
+    )
+    from meanflow_audio_codec_torch.training.adapter import (
+        adapter_from_config,
+        resolve_flatten_mode,
+    )
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+    from meanflow_audio_codec_torch.training.train_step import make_train_step
+    from meanflow_audio_codec_torch.training.trainer import (
+        input_example_shape,
+    )
+
+    architecture, options, dataset, tokenization, tok_cfg = (
+        FAMILY_CONFIGS[family])
+    data = {"base": {"batch_size": 4, "n_steps": 1, "base_lr": 1e-3,
+                     "weight_decay": 1e-4, "seed": 0},
+            "model": {"noise_dimension": 1, "condition_dimension": 64,
+                      "latent_dimension": 16, "num_blocks": 2,
+                      "architecture": architecture,
+                      "architecture_options": options},
+            "dataset": {"dataset": dataset,
+                        "tokenization_strategy": tokenization,
+                        "tokenization_config": tok_cfg},
+            "method": {"method": "improved_mean_flow"},
+            "tpu": {"precision": "bfloat16"}}
+    cfg = config_from_dict(data)
+    strategy = create_tokenization_strategy(tokenization, tok_cfg)
+    n, d = compute_token_shape(strategy, input_example_shape(cfg))
+    data["model"]["noise_dimension"] = (
+        d if resolve_flatten_mode(cfg) == "frames" else n * d)
+    cfg = config_from_dict(data)
+    model = create_flow_model(cfg, generator=torch.Generator().manual_seed(0))
+    state = TrainState(model, make_optimizer(cfg), None,
+                       device=torch.device(where))
+    adapter = adapter_from_config(cfg, strategy)
+    step = make_train_step(create_loss_strategy(cfg), adapter)
+    return cfg, state, step, adapter
+
+
+@pytest.mark.parametrize("family", list(FAMILY_CONFIGS))
+def test_new_family_bf16_step_on_the_card_matches_the_cpu(device, family):
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for where in ("cpu", device):
+        cfg, state, step, adapter = _family_step(where, family)
+        if not out:
+            shape = ((4, 784) if cfg.dataset == "mnist"
+                     else (4, cfg.tokenization_config["frame_size"], 2))
+            batch = torch.rand(shape, generator=gen) * 2 - 1
+            x = adapter.tokenize(batch)
+            draws = (torch.randn(x.shape, generator=gen),
+                     *create_loss_strategy(cfg).time_sampling
+                     .sample_time_pair(x.shape[0], gen))
+        noise, t, r = (d.to(where) for d in draws)
+        state, metrics = step(state, batch.to(where), noise=noise, t=t, r=r)
+        out.append((float(metrics["loss"]), torch.cat(
+            [m.reshape(-1).float().cpu() for m in state.mu])))
+    (loss_cpu, mu_cpu), (loss_card, mu_card) = out
+    assert abs(loss_card - loss_cpu) <= 2e-2 * abs(loss_cpu)
+    rel = float((mu_card - mu_cpu).norm() / mu_cpu.norm())
+    assert rel <= 5e-2, rel
+
+
+@pytest.mark.parametrize("hop,normalize", [(None, False), (1024, True)])
+def test_fft_mdct_on_the_card_matches_the_cpu(device, hop, normalize):
+    from meanflow_audio_codec_torch.ops.mdct import imdct_fft, mdct_fft
+
+    cfg = MDCTConfig(4096, hop, normalize)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(3, 5 * 4096 + 77, generator=gen)
+    coeffs = mdct_fft(x.to(device), cfg)
+    torch.testing.assert_close(coeffs.cpu(), mdct_fft(x, cfg), rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(mdct(x.to(device), cfg).cpu(),
+                               coeffs.cpu())  # W 4096: mdct takes the FFT
+    X = torch.randn(3, 4, 4096, generator=gen)
+    torch.testing.assert_close(imdct_fft(X.to(device), cfg).cpu(),
+                               imdct_fft(X, cfg), rtol=RTOL, atol=ATOL)

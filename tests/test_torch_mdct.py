@@ -154,8 +154,10 @@ def test_tokenizer_rejects_bad_shapes():
         tok.tokenize(torch.zeros(2, 3, 4, 5))
     with pytest.raises(ValueError):
         tok.detokenize(torch.zeros(2, 3, 100))
+    # reshape is ported (tests/test_torch_tokenize_reshape.py); an unknown
+    # strategy raises
     with pytest.raises(ValueError):
-        create_tokenization_strategy("reshape")
+        create_tokenization_strategy("wavelet")
     assert create_tokenization_strategy(None, {"window_size": 32}).config == \
         MDCTConfig(32, 16)
 

@@ -276,9 +276,13 @@ def test_factory_matches_jax_param_shapes_at_frontier_width():
 def test_factory_rejects_unported_families_and_options():
     base = {"noise_dimension": 128, "condition_dimension": 16,
             "latent_dimension": 8, "num_blocks": 1}
-    with pytest.raises(NotImplementedError):
-        create_flow_model(config_from_dict({"model": dict(base,
-                                                          architecture="mlp")}))
+    # every family of the JAX package builds; an unknown one raises JAX's
+    # ValueError
+    assert isinstance(create_flow_model(config_from_dict(
+        {"model": dict(base, architecture="mlp")})), torch.nn.Module)
+    with pytest.raises(ValueError, match="Unknown architecture"):
+        create_flow_model(config_from_dict({"model": dict(
+            base, architecture="transformer")}))
     with pytest.raises(NotImplementedError):
         create_flow_model(config_from_dict({"model": dict(
             base, architecture="convnet",

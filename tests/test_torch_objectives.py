@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch import nn
 
 from meanflow_audio_codec_tpu.configs import (
@@ -245,6 +246,35 @@ def test_stop_gradient_changes_the_gradient_not_the_loss():
         results.append((loss, torch.cat([g.reshape(-1) for g in grad])))
     torch.testing.assert_close(results[0][0], results[1][0])
     assert not torch.allclose(results[0][1], results[1][1])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("make", [obj.MeanFlowObjective,
+                                  obj.ImprovedMeanFlowObjective],
+                         ids=["mf", "imf"])
+def test_stop_gradient_jvp_keeps_no_tangent_on_the_tape(make, fused):
+    """With the stop-gradient nothing autograd saves for the backward is a
+    dual tensor (JAX's linearisation keeps no tangent residual; a dual
+    forward on the tape held every saved activation's tangent and the
+    tangent branch's own tensors, about doubling a step's memory). Without
+    it the dual forward is recorded, as the grad-of-JVP needs."""
+    x = torch.from_numpy((0.3 * np.random.default_rng(3).standard_normal(
+        (BATCH, 64))).astype(np.float32))
+    model = conv_flow.ConditionalConvFlow(**FLOW, fused_stage=fused)
+    draws = make().draw(model, x, torch.Generator().manual_seed(0))
+    for stop in (True, False):
+        duals = []
+
+        def pack(t):
+            if t.is_floating_point() and fwAD.unpack_dual(t).tangent \
+                    is not None:
+                duals.append(tuple(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = make(use_stop_gradient=stop).loss(model, x, **draws)
+        torch.autograd.grad(loss, list(model.parameters()))
+        assert (len(duals) == 0) == stop, (stop, duals[:3])
 
 
 @pytest.mark.parametrize("objective", [

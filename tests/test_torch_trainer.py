@@ -367,7 +367,10 @@ def test_geometry_helpers():
 
 
 @pytest.mark.parametrize("section,values,error", [
-    ("dataset", {"dataset": "mnist"}, NotImplementedError),
+    # mnist trains; an unknown tokenization on it is refused before any
+    # file is written
+    ("dataset", {"dataset": "mnist", "tokenization_strategy": "wavelet"},
+     ValueError),
     ("method", {"loss_strategy": "diffusion"}, ValueError),
     ("tpu", {"mesh_data": 4}, NotImplementedError),
     ("training", {"checkpoint_format": "orbax"}, NotImplementedError),
