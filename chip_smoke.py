@@ -43,7 +43,7 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path (and those of phases 7-12, 9a, 12a and 12b) is driven with the
+     each path (and those of phases 7-12, 9a, 10a and 12a-12c) is driven with the
      kernels' launch counts (and the count of each GELU+GRN kernel) set to
      0 just before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
@@ -105,6 +105,19 @@ and prints no result line):
      sampling at the end; chunk ms per step, peak memory, ``update_ok`` on
      every step; the run served and a 10 s clip's latents through the ECSQ
      0.5 byte path within half a step;
+  10a. (run right after the QAT trainer, on the trainer's workdir)
+     evaluation: ``python -m meanflow_audio_codec_torch.tools.eval_suite``
+     through ``main`` (16 held-out clips, NFE 1, 2 and 10 with 2 timed
+     runs, the ECSQ 0.5 and 8-bit stored formats, the rich family), each
+     result file checked for the JAX package's key set per NFE entry
+     (that of outputs/imf_frontier_v2/evaluation_results_step65k.json),
+     finite values and measured kbps; one ``ComprehensiveEvaluator`` pass
+     at its default 64 clips, NFE 1, 5 timed runs (the card's sampling ms,
+     the host's metric seconds, peak memory); the float32 evaluation of 2
+     clips x 4096 at NFE 1 on the card against the CPU's (decoded audio
+     within relative L2 1e-5); ``tools/export_serving``, whose file served
+     alone decodes as the full checkpoint's EMA, bit for bit; and
+     ``tools/export_samples --num-clips 2`` with its WAV names checked;
   11. objectives: one bare bf16 step each (median of 5 after 2 warm-ups,
      peak memory) of flow matching, mean flow, the autoencoder, iMF without
      the stop-gradient (plain and ``fused_stage``) and iMF with the learned
@@ -135,15 +148,25 @@ and prints no result line):
   12b. the matrix: ``tools/matrix_smoke`` over all 48 configs/method=*.json
      on the card (the JAX smoke's tiny overrides), one line per config,
      then 48/48;
+  12c. ``tools/evaluate_all`` through ``main`` over two configs, the corpus
+     phase's run (held-out clips from its corpus) and path C's MNIST run
+     (image metrics), NFE 1 and 2 at 16 examples: one CSV row per config
+     and NFE; then the flag-driven trainer, ``python -m
+     meanflow_audio_codec_torch.train --dataset audio --method
+     improved_mean_flow --architecture convnet --architecture-options
+     <frontier_v2's> ...`` without ``--config`` (16 steps in chunks of 8,
+     the device pool cut to 64 clips): finite steps, ``config.json``
+     holding the flags, frontier-v2's 33,813,696 parameters;
   13. float32 checks (phase 6) plus each objective's loss and gradients on
      the card against the CPU at one clip (relative L2 <= 1e-5), then
      profiles of one round trip and one bf16 train step with
      ``fused_stage`` on and off (device time by kernel, busy share);
   14. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
-     trainer, codec bytes, codec CLI, streaming, QAT trainer, the corpus
-     trainer, its exact stream and serving, each objective, each remat
-     setting, the three family trainers, the two codecs' serving, the
-     matrix), then the result line
+     trainer, codec bytes, codec CLI, streaming, QAT trainer, eval_suite,
+     the 64-clip evaluator, the exports, the corpus trainer, its exact
+     stream and serving, each objective, each remat setting, the three
+     family trainers, the two codecs' serving, the matrix, evaluate_all,
+     the flag-driven trainer), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
@@ -249,6 +272,12 @@ CORPUS_FLAC, CORPUS_WAV, CORPUS_SECONDS = 16, 4, 4.46
 LOADER_BATCHES = 20
 CORPUS_PARAMS = 114_472_384
 SAMPLE_RATE = 44100
+#: the evaluation phase: eval_suite's held-out clips and NFEs, and the JAX
+#: package's result file whose NFE entries give the key set to match
+EVAL_CLIPS, EVAL_NFES = 16, [1, 2, 10]
+EVAL_REFERENCE = (REPO / "outputs" / "imf_frontier_v2" /
+                  "evaluation_results_step65k.json")
+FRONTIER_PARAMS = 33_813_696  # configs/frontier_v2.json, as JAX counts them
 RTOL, ATOL = 1e-4, 1e-3
 REPEATS = 10  # timed round trips per request
 TRAIN_CLIPS, CLIP_LEN = 16, 32768  # frontier-v2 batch_size and frame_size
@@ -2174,9 +2203,11 @@ def family_serving_path(device: torch.device, card: str, label: str,
     return launches
 
 
-def families_phase(device: torch.device, card: str, scratch: Path) -> dict:
+def families_phase(device: torch.device, card: str, scratch: Path,
+                   keep: tuple[str, ...] = ()) -> dict:
     """Paths A-C (``FAMILY_RUNS``): train, resume, and serve the codecs;
-    returns the launch counts per path."""
+    returns the launch counts per path. The workdirs of the labels in
+    ``keep`` stay under ``scratch``."""
     paths = {}
     for label in FAMILY_RUNS:
         workdir = scratch / label
@@ -2187,7 +2218,8 @@ def families_phase(device: torch.device, card: str, scratch: Path) -> dict:
             paths[f"{label}_serving"] = family_serving_path(device, card,
                                                             label, workdir)
             torch.cuda.empty_cache()
-        shutil.rmtree(workdir)
+        if label not in keep:
+            shutil.rmtree(workdir)
     return paths
 
 
@@ -2212,6 +2244,360 @@ def matrix_phase(device: torch.device, scratch: Path) -> dict:
     for kernel in ("mdct_cuda", "imdct_cuda"):
         if launches[kernel] == 0:
             raise AssertionError(f"{kernel} was not launched in the matrix")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# evaluation (phase 12c)
+# ---------------------------------------------------------------------------
+
+
+def _finite_numbers(node, where: str) -> None:
+    """Raise unless every number in a result dict is finite."""
+    if isinstance(node, dict):
+        for key, value in node.items():
+            _finite_numbers(value, f"{where}.{key}")
+    elif isinstance(node, (int, float)) and not isinstance(node, bool):
+        if not math.isfinite(node):
+            raise AssertionError(f"{where} = {node}")
+
+
+def eval_suite_path(device: torch.device, card: str, workdir: Path) -> dict:
+    """``python -m meanflow_audio_codec_torch.tools.eval_suite`` through
+    ``main`` on the trainer phase's frontier-v2 workdir: 16 held-out clips,
+    NFE 1, 2 and 10 with 2 timed runs, the ECSQ 0.5 and 8-bit stored
+    formats and the rich family. Checks every result file (the JAX
+    package's key set per NFE entry, finite values, measured kbps > 0) and
+    that the MDCT and IMDCT kernels ran. Returns the launch counts."""
+    from meanflow_audio_codec_torch.tools import eval_suite
+
+    want_keys = set(json.loads(EVAL_REFERENCE.read_text())["nfe_sweep"]["1"])
+    want_keys.discard("pesq")
+    for old in workdir.glob("evaluation_results*.json"):
+        old.unlink()
+    zero_launches()
+    t0 = time.perf_counter()
+    if eval_suite.main(["--workdir", str(workdir), "--num-samples",
+                        str(EVAL_CLIPS), "--nfe", *map(str, EVAL_NFES),
+                        "--timing-runs", "2", "--cross-family", "rich"]) != 0:
+        raise AssertionError("eval_suite main failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    passes = {"evaluation_results.json": EVAL_NFES,
+              "evaluation_results_ecsq0.5.json": [1],
+              "evaluation_results_bits8.json": [1],
+              "evaluation_results_rich.json": [1, 10]}
+    written = sorted(p.name for p in workdir.glob("evaluation_results*.json"))
+    if written != sorted(passes):
+        raise AssertionError(f"eval_suite wrote {written}")
+    for name, nfes in passes.items():
+        results = json.loads((workdir / name).read_text())
+        _finite_numbers(results, name)
+        if list(results["nfe_sweep"]) != [str(n) for n in nfes]:
+            raise AssertionError(f"{name}: NFEs {list(results['nfe_sweep'])}")
+        for nfe, entry in results["nfe_sweep"].items():
+            if set(entry) != want_keys:
+                raise AssertionError(f"{name} nfe {nfe}: keys {sorted(entry)}"
+                                     f", the JAX package's {sorted(want_keys)}")
+        kbps = results.get("bitstream_kbps_measured")
+        if ("ecsq" in name or "bits" in name) and not kbps > 0:
+            raise AssertionError(f"{name}: bitstream_kbps_measured {kbps}")
+        line = ", ".join(
+            f"nfe {nfe}: sampling {1e3 * e['inference']['mean_sec']:.3f} ms "
+            f"(first {1e3 * e['first_call_sec']:.3f}), mse {e['mse']:.5f}, "
+            f"si_snr {e['si_snr_db']:.3f} dB, stoi {e['stoi']:.4f}, nsim "
+            f"{e['nsim']:.4f}, bsd {e['bsd']:.4f}"
+            for nfe, e in results["nfe_sweep"].items())
+        print(f"[{card}] eval_suite {name} ({EVAL_CLIPS} clips x {CLIP_LEN}, "
+              f"seeded weights after 48 steps: the path works, not a "
+              f"quality figure): {line}"
+              + (f"; {kbps:.3f} kbps stored" if kbps else ""), flush=True)
+    print(f"[{card}] eval_suite: 4 passes, 7 NFE entries in {wall:.1f} s; "
+          f"launches {launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched in eval_suite")
+    return launches
+
+
+def evaluator_timing_path(device: torch.device, card: str,
+                          workdir: Path) -> dict:
+    """One ``ComprehensiveEvaluator`` pass on the frontier-v2 run at its
+    default 64 clips, NFE 1, 5 timed runs: the card's sampling time, the
+    host's metric time (``_quality``) and the peak memory. Returns the
+    launch counts."""
+    from meanflow_audio_codec_torch.evaluators import ComprehensiveEvaluator
+    from meanflow_audio_codec_torch.tools.evaluate_all import (
+        find_checkpoint_for,
+        load_real_data,
+    )
+
+    config = load_config(workdir / "config.json")
+    data = load_real_data(config, 64, synthetic_family="tonal")
+    evaluator = ComprehensiveEvaluator(find_checkpoint_for(config), config,
+                                       nfe_list=[1], num_samples=64,
+                                       timing_runs=5)
+    host = []
+    quality = evaluator._quality
+
+    def timed_quality(real, generated):
+        t0 = time.perf_counter()
+        out = quality(real, generated)
+        host.append(time.perf_counter() - t0)
+        return out
+
+    evaluator._quality = timed_quality
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    results = evaluator.evaluate(data)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    entry = results["nfe_sweep"]["1"]
+    _finite_numbers(results, "evaluator")
+    timing = entry["inference"]
+    rows = 64 * num_frames_for_length(CLIP_LEN, 512, 256)
+    print(f"[{card}] ComprehensiveEvaluator, frontier-v2 bf16, 64 clips x "
+          f"{CLIP_LEN} ({rows} flow rows), NFE 1: sampling mean "
+          f"{1e3 * timing['mean_sec']:.3f} ms, p50 "
+          f"{1e3 * timing['p50_sec']:.3f} ms, min {1e3 * timing['min_sec']:.3f}"
+          f" ms (5 runs; first call {1e3 * entry['first_call_sec']:.3f} ms); "
+          f"host metrics (_quality: mse, spectral distance, SI-SNR, STOI, "
+          f"eSTOI, NSIM, BSD per clip) {host[0]:.3f} s; evaluate() wall "
+          f"{wall:.3f} s; peak memory {peak_gb:.3f} GB; launches {launches}",
+          flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched evaluating")
+    return launches
+
+
+def check_evaluator_against_cpu(device: torch.device, workdir: Path) -> None:
+    """The frontier-v2 run's checkpoint evaluated in float32 at NFE 1 on 2
+    clips of 4096 samples, on the card and on the CPU with the same start
+    noise: the decoded audio within relative L2 1e-5."""
+    from meanflow_audio_codec_torch.evaluators import ComprehensiveEvaluator
+    from meanflow_audio_codec_torch.tools.evaluate_all import (
+        find_checkpoint_for,
+    )
+
+    config = load_config(workdir / "config.json")
+    config = dataclasses.replace(
+        config, precision="float32",
+        tokenization_config={**config.tokenization_config,
+                             "frame_size": 4096})
+    clips = synth_audio(2, 4096, torch.Generator(device).manual_seed(21),
+                        device).cpu().numpy()
+    rows = 2 * num_frames_for_length(4096, 512, 256)
+    noise = {1: torch.randn(rows, config.noise_dimension,
+                            generator=torch.Generator().manual_seed(22))}
+    decoded = []  # the card's, then the CPU's
+    for where in (device, torch.device("cpu")):
+        evaluator = ComprehensiveEvaluator(find_checkpoint_for(config),
+                                           config, nfe_list=[1],
+                                           timing_runs=0, device=where)
+        quality = evaluator._quality
+
+        def keep(real, generated, quality=quality):
+            decoded.append(generated)
+            return quality(real, generated)
+
+        evaluator._quality = keep
+        evaluator.evaluate(clips, noise=noise)
+    got, ref = (torch.from_numpy(d).double() for d in decoded)
+    rel = ((got - ref).norm() / ref.norm()).item()
+    print(f"evaluator float32 NFE 1, 2 clips x 4096 ({rows} rows), card vs "
+          f"CPU: decoded audio {tuple(got.shape)}, relative L2 {rel:.3e}",
+          flush=True)
+    if not rel <= TRAIN_REL_L2 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"evaluator card vs CPU: relative L2 {rel:.3e}")
+
+
+def export_path(device: torch.device, card: str, workdir: Path,
+                scratch: Path) -> dict:
+    """``tools/export_serving`` on the frontier-v2 workdir, then
+    ``AudioCodec.from_workdir`` on a copy holding only its serving file
+    decodes a clip exactly as the full checkpoint's EMA does; then
+    ``tools/export_samples --num-clips 2`` with the WAV names checked.
+    Returns the launch counts."""
+    from meanflow_audio_codec_torch.tools import export_samples, export_serving
+
+    zero_launches()
+    t0 = time.perf_counter()
+    if export_serving.main(["--workdir", str(workdir)]) != 0:
+        raise AssertionError("export_serving main failed")
+    export_s = time.perf_counter() - t0
+    serving = sorted(workdir.glob("checkpoints/serving_step_*.msgpack"))[-1]
+    only = scratch / "exported_serving_only"
+    (only / "checkpoints").mkdir(parents=True)
+    shutil.copy(workdir / "config.json", only)
+    shutil.copy(serving, only / "checkpoints")
+    clip = synth_audio(1, CLIP_LEN, torch.Generator(device).manual_seed(23),
+                       device)
+    outs = [AudioCodec.from_workdir(path).roundtrip(
+        clip, generator=torch.Generator(device).manual_seed(24))
+            for path in (workdir, only)]
+    if not torch.equal(*outs):
+        raise AssertionError("the exported serving file does not decode as "
+                             "the full checkpoint's EMA")
+    out_dir = scratch / "samples"
+    if export_samples.main(["--workdir", str(workdir), "--num-clips", "2",
+                            "--out-dir", str(out_dir)]) != 0:
+        raise AssertionError("export_samples main failed")
+    sidecar = json.loads((out_dir / "export_samples.json").read_text())
+    names = sorted(p.name for p in out_dir.glob("*.wav"))
+    want = sorted([f"heldout_{i}_{kind}.wav" for i in range(2)
+                   for kind in ("original", "recon_nfe1")]
+                  + [f"bitstream_{i}_original.wav" for i in range(2)]
+                  + [f"bitstream_{i}_recon_{row['kbps_measured']:.0f}kbps.wav"
+                     for i, row in enumerate(sidecar["bitstream"])])
+    if names != want or set(sidecar) != {"workdir", "nfe", "num_clips",
+                                         "frame_size", "heldout",
+                                         "bitstream"}:
+        raise AssertionError(f"export_samples wrote {names}, sidecar "
+                             f"{sorted(sidecar)}")
+    launches = read_launches()
+    print(f"[{card}] export_serving {serving.name} "
+          f"({serving.stat().st_size / 1e6:.1f} MB) in {export_s:.2f} s, "
+          f"served alone it decodes as the full checkpoint's EMA (bit for "
+          f"bit); export_samples: {names}; launches {launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched exporting")
+    return launches
+
+
+def evaluate_all_path(device: torch.device, card: str, corpus_run: Path,
+                      mnist_run: Path, scratch: Path) -> dict:
+    """``tools/evaluate_all`` through ``main`` over a directory holding two
+    configs: the corpus phase's run (its held-out clips from the corpus, at
+    ``seed+1``) and the ablation run of path C (MNIST, image metrics), NFE 1
+    and 2 at 16 examples; one CSV row per config and NFE. Returns the
+    launch counts."""
+    from meanflow_audio_codec_torch.tools import evaluate_all
+
+    configs_dir = scratch / "eval_configs"
+    configs_dir.mkdir()
+    for name, run in (("corpus_run", corpus_run),
+                      ("ablation_large", mnist_run)):
+        shutil.copy(run / "config.json", configs_dir / f"{name}.json")
+    csv_path = scratch / "metrics.csv"
+    zero_launches()
+    t0 = time.perf_counter()
+    if evaluate_all.main(["--configs", str(configs_dir), "--nfe", "1", "2",
+                          "--num-samples", "16", "--timing-runs", "1",
+                          "--csv", str(csv_path)]) != 0:
+        raise AssertionError("evaluate_all main failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    lines = csv_path.read_text().splitlines()
+    rows = [line.split(",")[:6] for line in lines[1:]]
+    want = [[name, method, arch, dataset, tok, nfe]
+            for name, method, arch, dataset, tok in (
+                ("ablation_large", "mean_flow", "mlp", "mnist", "reshape"),
+                ("corpus_run", "improved_mean_flow", "convnet", "audio",
+                 "mdct"))
+            for nfe in ("1", "2")]
+    if sorted(rows) != sorted(want):
+        raise AssertionError(f"evaluate_all rows {rows}")
+    for name, run in (("corpus_run", corpus_run),
+                      ("ablation_large", mnist_run)):
+        results = json.loads((run / "evaluation_results.json").read_text())
+        _finite_numbers(results, name)
+        entry = results["nfe_sweep"]["1"]
+        metric = ("si_snr_db", "stoi") if name == "corpus_run" else (
+            "psnr_db", "ssim")
+        print(f"[{card}] evaluate_all {name}: {results['param_count']} "
+              f"parameters, nfe 1 sampling "
+              f"{1e3 * entry['inference']['mean_sec']:.3f} ms, mse "
+              f"{entry['mse']:.5f}, {metric[0]} {entry[metric[0]]:.4f}, "
+              f"{metric[1]} {entry[metric[1]]:.4f}", flush=True)
+    print(f"[{card}] evaluate_all: {len(rows)} CSV rows (2 configs x 2 NFE) "
+          f"in {wall:.1f} s; launches {launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] == 0:
+            raise AssertionError(f"{kernel} was not launched in evaluate_all")
+    return launches
+
+
+def flag_trainer_path(device: torch.device, card: str,
+                      scratch: Path) -> dict:
+    """The flag-driven trainer: ``python -m meanflow_audio_codec_torch.train
+    --dataset audio --method improved_mean_flow --architecture convnet
+    --architecture-options <frontier_v2's> --condition-dimension 256
+    --latent-dimension 256 --num-blocks 8 --frame-size 32768 --window-size
+    512 --coeff-scale 4 --batch-size 16 --n-steps 16 --steps-per-call 8
+    --precision bfloat16`` through ``main``, without ``--config`` (the
+    device pool cut from 1024 clips to 64, as in the trainer phase). Checks
+    every step finite, ``config.json`` holding the flags' values and the
+    tokenized width (1024 where ``create_audio_config`` says 196608), and
+    the JAX package's parameter count of frontier-v2. Returns the launch
+    counts."""
+    workdir = scratch / "flag_run"
+    frontier = load_config(CONFIG)
+    tok = frontier.tokenization_config
+    flags = {"--dataset": "audio", "--method": "improved_mean_flow",
+             "--architecture": "convnet",
+             "--architecture-options": json.dumps(
+                 frontier.architecture_options),
+             "--condition-dimension": str(frontier.condition_dimension),
+             "--latent-dimension": str(frontier.latent_dimension),
+             "--num-blocks": str(frontier.num_blocks),
+             "--frame-size": str(CLIP_LEN),
+             "--window-size": str(tok["window_size"]),
+             "--coeff-scale": f"{tok['coeff_scale']:g}",
+             "--batch-size": str(TRAIN_CLIPS), "--n-steps": "16",
+             "--steps-per-call": "8", "--precision": frontier.precision,
+             "--device-pool-clips": "64", "--workdir": str(workdir)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    if train_cli.main([a for kv in flags.items() for a in kv]) != 0:
+        raise AssertionError("flag-driven train main failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    starts = [r for r in records if r.get("event") == "start"]
+    steps = [r for r in records if "event" not in r]
+    if [r["step"] for r in steps] != list(range(16)) or not all(
+            math.isfinite(r["loss"]) for r in steps):
+        raise AssertionError(f"flag run steps {steps}")
+    if starts[0]["param_count"] != FRONTIER_PARAMS:
+        raise AssertionError(f"flag run: {starts[0]['param_count']} "
+                             f"parameters, frontier-v2 has {FRONTIER_PARAMS}")
+    saved = json.loads((workdir / "config.json").read_text())
+    model, tok_saved = saved["model"], saved["dataset"]["tokenization_config"]
+    got = (saved["dataset"]["dataset"], saved["method"]["method"],
+           saved["method"]["use_improved_mean_flow"], model["architecture"],
+           model["architecture_options"], model["condition_dimension"],
+           model["latent_dimension"], model["num_blocks"],
+           model["noise_dimension"], tok_saved["frame_size"],
+           tok_saved["window_size"], tok_saved["coeff_scale"],
+           tok_saved["device_pool_clips"], saved["base"]["batch_size"],
+           saved["base"]["n_steps"], saved["tpu"]["steps_per_call"],
+           saved["tpu"]["precision"])
+    want = ("audio", "improved_mean_flow", True, "convnet",
+            frontier.architecture_options, frontier.condition_dimension,
+            frontier.latent_dimension, frontier.num_blocks,
+            frontier.noise_dimension, CLIP_LEN, tok["window_size"],
+            tok["coeff_scale"], 64, TRAIN_CLIPS, 16, 8, frontier.precision)
+    if got != want:
+        raise AssertionError(f"flag run config.json {got}, flags {want}")
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 8)]
+    print(f"[{card}] flag-driven trainer (no --config; frontier-v2 widths, "
+          f"{int(starts[0]['param_count'])} params as JAX counts them, "
+          f"effective "
+          f"noise dimension {model['noise_dimension']}): chunk time per step "
+          f"{chunk_ms[0]:.3f} / {chunk_ms[1]:.3f} ms (the first includes "
+          f"the start), last loss {steps[-1]['loss']:.6f}, peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB, wall "
+          f"{wall:.1f} s; launches {launches}", flush=True)
+    if launches["mdct_cuda"] < 16:
+        raise AssertionError("the flag-driven run did not tokenize on the "
+                             "MDCT kernel at every step")
     return launches
 
 
@@ -2409,27 +2795,46 @@ def main() -> int:
                                                 Path(tmp))
         torch.cuda.empty_cache()
         lap("QAT trainer")
+        paths["eval_suite"] = eval_suite_path(device, card, workdir)
+        torch.cuda.empty_cache()
+        paths["evaluator"] = evaluator_timing_path(device, card, workdir)
+        torch.cuda.empty_cache()
+        check_evaluator_against_cpu(device, workdir)
+        paths["export"] = export_path(device, card, workdir, Path(tmp))
+        torch.cuda.empty_cache()
+        lap("evaluation")
     paths["streaming"] = streaming_path(device, card, served)
     del served
     torch.cuda.empty_cache()
     lap("streaming")
-    with tempfile.TemporaryDirectory() as tmp:
-        paths.update(corpus_phase(device, card, Path(tmp)))
-    torch.cuda.empty_cache()
-    lap("corpus")
-    chunk_probe(device, bare)
-    torch.cuda.empty_cache()
-    lap("chunk probe")
-    paths.update(objectives_path(device, card))
-    lap("objectives")
-    paths.update(remat_path(device, card))
-    lap("remat")
-    with tempfile.TemporaryDirectory() as tmp:
-        paths.update(families_phase(device, card, Path(tmp)))
-        lap("families")
-        paths["matrix"] = matrix_phase(device, Path(tmp))
-    torch.cuda.empty_cache()
-    lap("matrix")
+    with tempfile.TemporaryDirectory() as corpus_tmp:
+        corpus_scratch = Path(corpus_tmp)
+        paths.update(corpus_phase(device, card, corpus_scratch))
+        # the corpus run stays for evaluate_all (12c); its exact stream goes
+        shutil.rmtree(corpus_scratch / "corpus_exact")
+        torch.cuda.empty_cache()
+        lap("corpus")
+        chunk_probe(device, bare)
+        torch.cuda.empty_cache()
+        lap("chunk probe")
+        paths.update(objectives_path(device, card))
+        lap("objectives")
+        paths.update(remat_path(device, card))
+        lap("remat")
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(families_phase(device, card, Path(tmp),
+                                        keep=("ablation_large",)))
+            lap("families")
+            paths["matrix"] = matrix_phase(device, Path(tmp))
+            torch.cuda.empty_cache()
+            lap("matrix")
+            paths["evaluate_all"] = evaluate_all_path(
+                device, card, corpus_scratch / "corpus_run",
+                Path(tmp) / "ablation_large", Path(tmp))
+            torch.cuda.empty_cache()
+            paths["flag_trainer"] = flag_trainer_path(device, card, Path(tmp))
+            torch.cuda.empty_cache()
+            lap("evaluate_all and the flag-driven trainer")
     check_fused_against_plain(device)
     check_against_cpu(device)
     check_train_against_cpu(device)

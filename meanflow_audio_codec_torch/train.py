@@ -1,51 +1,68 @@
-"""Config-driven training CLI; counterpart of the repository's ``train.py``.
+"""Training CLI; counterpart of the repository's ``train.py``, with its flags.
 
     python -m meanflow_audio_codec_torch.train --config configs/X.json \
-        [--workdir outputs/run] [--data-dir corpus/] [--resume] ...
+        [--workdir outputs/run] [--resume] [overrides ...]
+    python -m meanflow_audio_codec_torch.train --dataset audio \
+        --method improved_mean_flow --architecture convnet \
+        --workdir outputs/run                     # fully flag-driven
 
-Trains on the card (``train_flow(device="cuda")``). The flags it honours
-have the names and meanings of the root CLI's; the root CLI's other flags
-(the flag-driven config without ``--config``, the model and optimiser
-overrides) are refused with a message naming the ROADMAP.
+Without ``--config`` the run starts from ``create_audio_config`` (``--dataset
+audio``) or ``create_mnist_config`` (otherwise) with the flags' overrides;
+``--method improved_mean_flow`` also sets ``use_improved_mean_flow``, and the
+tokenization flags fold into ``dataset.tokenization_config``. Trains on the
+card (``train_flow(device="cuda")``).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from pathlib import Path
 
-from meanflow_audio_codec_torch.configs import load_config, merge_configs
+from meanflow_audio_codec_torch.configs import (
+    CodecConfig,
+    create_audio_config,
+    create_mnist_config,
+    load_config,
+    merge_configs,
+)
 from meanflow_audio_codec_torch.training.trainer import train_flow
-
-#: flags of the root CLI the port does not honour yet
-UNPORTED_FLAGS = (
-    "--dataset", "--method", "--architecture", "--tokenization",
-    "--base-lr", "--weight-decay", "--noise-dimension",
-    "--condition-dimension", "--latent-dimension", "--num-blocks", "--gamma",
-    "--full-interval-proportion", "--window-size", "--coeff-scale",
-    "--architecture-options", "--grad-clip-norm", "--warmup-steps",
-    "--lr-schedule", "--lr-final-fraction")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Train a meanflow audio codec model on the card")
     p.add_argument("--config", type=Path, default=None,
-                   help="JSON config file (v2 hierarchical)")
+                   help="JSON config file (v1 flat or v2 hierarchical)")
     p.add_argument("--workdir", type=Path, default=None,
                    help="run directory (overrides config)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest valid checkpoint")
+    # flag-driven alternative to --config
+    p.add_argument("--dataset", choices=["mnist", "audio"], default=None)
     p.add_argument("--data-dir", type=str, default=None,
                    help="directory of audio files to train on (synthetic "
                         "audio when it does not exist)")
-    p.add_argument("--resample-audio", action="store_true",
-                   help="polyphase-resample off-rate corpus files to "
-                        "44.1 kHz instead of dropping them")
+    p.add_argument("--method", choices=["autoencoder", "flow_matching",
+                                        "mean_flow", "improved_mean_flow"],
+                   default=None)
+    p.add_argument("--architecture", choices=["mlp", "mlp_mixer", "convnet",
+                                              "simple_conv"], default=None)
+    p.add_argument("--tokenization", choices=["mdct", "reshape"], default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--n-steps", type=int, default=None)
+    p.add_argument("--base-lr", type=float, default=None)
+    p.add_argument("--weight-decay", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--noise-dimension", type=int, default=None)
+    p.add_argument("--condition-dimension", type=int, default=None)
+    p.add_argument("--latent-dimension", type=int, default=None)
+    p.add_argument("--num-blocks", type=int, default=None)
+    p.add_argument("--gamma", type=float, default=None)
+    p.add_argument("--full-interval-proportion", type=float, default=None,
+                   help="fraction of each batch trained at the exact "
+                        "(t=1, r=0) pair that 1-NFE decode evaluates")
     p.add_argument("--sample-every", type=int, default=None)
     p.add_argument("--sample-steps", type=int, default=None)
     p.add_argument("--sample-seed", type=int, default=None)
@@ -57,12 +74,31 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None)
     p.add_argument("--frame-size", type=int, default=None,
                    help="audio frame size in samples")
+    p.add_argument("--window-size", type=int, default=None,
+                   help="MDCT window size")
+    p.add_argument("--coeff-scale", type=float, default=None,
+                   help="divide MDCT tokens by this scale (flow conditioning)")
     p.add_argument("--pool-batches", type=int, default=None,
                    help="host replay-pool size for the synthetic audio source")
     p.add_argument("--device-pool-clips", type=int, default=None,
                    help="device-resident replay pool size in clips (0 "
                         "disables; default 1024 for synthetic audio, 0 for "
                         "a corpus)")
+    p.add_argument("--architecture-options", type=str, default=None,
+                   help='JSON dict of family-specific sizing, e.g. '
+                        '\'{"channels": 128, "bottleneck_dim": 512}\'')
+    p.add_argument("--grad-clip-norm", type=float, default=None,
+                   help="global-norm gradient clipping (stabilises bf16 JVP)")
+    p.add_argument("--warmup-steps", type=int, default=None,
+                   help="linear LR warmup steps")
+    p.add_argument("--lr-schedule", choices=["constant", "cosine"],
+                   default=None,
+                   help="post-warmup LR decay (cosine decays to "
+                        "lr-final-fraction * base-lr over n-steps)")
+    p.add_argument("--lr-final-fraction", type=float, default=None)
+    p.add_argument("--resample-audio", action="store_true",
+                   help="polyphase-resample off-rate corpus files to "
+                        "44.1 kHz instead of dropping them")
     p.add_argument("--skip-nonfinite", action="store_true",
                    help="drop NaN/inf updates (decided on the device)")
     p.add_argument("--steps-per-call", type=int, default=None,
@@ -70,13 +106,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(args):
-    """The ``--config`` file with the flags' overrides merged in."""
-    overrides: dict = {
+def config_from_args(args) -> CodecConfig:
+    """The ``--config`` file, or the dataset's default config, with the
+    flags' overrides merged in (the root CLI's ``config_from_args``)."""
+    maps = {
         "base": {"batch_size": args.batch_size, "n_steps": args.n_steps,
-                 "seed": args.seed},
+                 "base_lr": args.base_lr, "weight_decay": args.weight_decay,
+                 "seed": args.seed, "grad_clip_norm": args.grad_clip_norm,
+                 "warmup_steps": args.warmup_steps,
+                 "lr_schedule": args.lr_schedule,
+                 "lr_final_fraction": args.lr_final_fraction},
+        "model": {"architecture": args.architecture,
+                  "noise_dimension": args.noise_dimension,
+                  "condition_dimension": args.condition_dimension,
+                  "latent_dimension": args.latent_dimension,
+                  "num_blocks": args.num_blocks,
+                  "architecture_options": (
+                      json.loads(args.architecture_options)
+                      if args.architecture_options else None)},
         "dataset": {"data_dir": args.data_dir,
+                    "tokenization_strategy": args.tokenization,
                     "resample_audio": args.resample_audio or None},
+        "method": {"method": args.method, "gamma": args.gamma,
+                   "time_sampling_full_proportion":
+                       args.full_interval_proportion},
         "training": {"workdir": str(args.workdir) if args.workdir else None,
                      "sample_every": args.sample_every,
                      "sample_steps": args.sample_steps,
@@ -89,32 +142,30 @@ def config_from_args(args):
                 "steps_per_call": args.steps_per_call},
     }
     overrides = {section: {k: v for k, v in values.items() if v is not None}
-                 for section, values in overrides.items()}
-    tok_cfg = {k: v for k, v in (("frame_size", args.frame_size),
-                                 ("pool_batches", args.pool_batches),
-                                 ("device_pool_clips", args.device_pool_clips))
-               if v is not None}
+                 for section, values in maps.items()}
+    if args.method == "improved_mean_flow":
+        overrides["method"]["use_improved_mean_flow"] = True
+    tok_cfg = {name: value for name, value in (
+        ("frame_size", args.frame_size), ("window_size", args.window_size),
+        ("coeff_scale", args.coeff_scale),
+        ("pool_batches", args.pool_batches),
+        ("device_pool_clips", args.device_pool_clips)) if value is not None}
     if tok_cfg:
         overrides["dataset"]["tokenization_config"] = tok_cfg
-    return merge_configs(load_config(args.config),
-                         {k: v for k, v in overrides.items() if v})
+    overrides = {k: v for k, v in overrides.items() if v}
+
+    if args.config is not None:
+        config = load_config(args.config)
+        return merge_configs(config, overrides) if overrides else config
+    factory = (create_audio_config if args.dataset == "audio"
+               else create_mnist_config)
+    return factory(**overrides)
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)
-    refused = [a.split("=")[0] for a in unknown
-               if a.split("=")[0] in UNPORTED_FLAGS]
-    if refused:
-        print(f"error: {', '.join(refused)} not ported yet: the port's CLI "
-              "takes --config and the flags its --help lists (ROADMAP "
-              "queue 1 item 10)", file=sys.stderr)
-        return 2
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.config is None:
-        print("error: provide --config (the flag-driven config is not "
-              "ported yet, ROADMAP queue 1 item 10)", file=sys.stderr)
+    args = build_parser().parse_args(argv)
+    if args.config is None and args.workdir is None:
+        print("error: provide --config and/or --workdir", file=sys.stderr)
         return 2
     train_flow(config_from_args(args), resume=args.resume)
     return 0

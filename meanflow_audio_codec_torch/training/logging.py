@@ -20,6 +20,8 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from meanflow_audio_codec_torch.configs import diff_dicts
+
 
 def save_json(data: dict, path: Path | str) -> None:
     path = Path(path)
@@ -227,31 +229,19 @@ def plot_loss_curve(log_path: Path | str, out_path: Path | str,
     plt.close(fig)
 
 
-def _flatten(d: dict, prefix: str = "") -> dict:
-    out: dict[str, Any] = {}
-    for k, v in d.items():
-        key = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, dict):
-            out.update(_flatten(v, key))
-        else:
-            out[key] = v
-    return out
-
-
-def diff_configs(old: dict, new: dict) -> dict:
-    """``{'changed': {...}, 'added': [...], 'removed': [...]}`` between two
-    v2 config dicts, by dotted key."""
-    flat1, flat2 = _flatten(old), _flatten(new)
-    changed = {key: {"old": flat1[key], "new": flat2[key]}
-               for key in flat1.keys() & flat2.keys()
-               if flat1[key] != flat2[key]}
-    return {"changed": changed,
-            "added": sorted(flat2.keys() - flat1.keys()),
-            "removed": sorted(flat1.keys() - flat2.keys())}
-
-
 def generate_config_diff(old: dict, new: dict, out_path: Path | str) -> dict:
     """Write the diff of two v2 config dicts (on resume)."""
-    diff = diff_configs(old, new)
+    diff = diff_dicts(old, new)
     save_json(diff, out_path)
     return diff
+
+
+def append_metrics_csv(path: Path | str, row: dict) -> None:
+    """Append a metrics row, writing the header on first use."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    new = not path.exists()
+    with path.open("a", encoding="utf-8") as fh:
+        if new:
+            fh.write(",".join(map(str, row.keys())) + "\n")
+        fh.write(",".join(str(v) for v in row.values()) + "\n")

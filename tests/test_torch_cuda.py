@@ -21,7 +21,10 @@ same step on the CPU (loss rtol 2e-2, Adam's first moments within relative
 L2 5e-2: both devices round every product's inputs and outputs to bf16,
 ~4e-3 each, but accumulate in other orders, through the JVP's tangents
 too); the FFT MDCT/IMDCT (cuFFT) at W 4096 against the CPU's at the
-transforms' rtol 1e-4 / atol 1e-3.
+transforms' rtol 1e-4 / atol 1e-3. ``ComprehensiveEvaluator`` on the card
+evaluates a float32 frontier-geometry run (W 512, a small ConvNeXt) as on
+the CPU (decoded audio within relative L2 1e-5, the same start noise) and
+launches the MDCT kernel once per evaluation and the IMDCT once per NFE.
 """
 
 import pytest
@@ -791,7 +794,8 @@ def _family_step(where, family):
             "dataset": {"dataset": dataset,
                         "tokenization_strategy": tokenization,
                         "tokenization_config": tok_cfg},
-            "method": {"method": "improved_mean_flow"},
+            "method": {"method": "improved_mean_flow",
+                       "use_improved_mean_flow": True},
             "tpu": {"precision": "bfloat16"}}
     cfg = config_from_dict(data)
     strategy = create_tokenization_strategy(tokenization, tok_cfg)
@@ -850,3 +854,108 @@ def test_fft_mdct_on_the_card_matches_the_cpu(device, hop, normalize):
     X = torch.randn(3, 4, 4096, generator=gen)
     torch.testing.assert_close(imdct_fft(X.to(device), cfg).cpu(),
                                imdct_fft(X, cfg), rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the evaluator on the card
+# ---------------------------------------------------------------------------
+
+#: frontier-v2's geometry (MDCT W 512 stereo, gain-normalised) at a small
+#: ConvNeXt, float32, trained 2 steps on the CPU
+EVAL_RUN = {
+    "base": {"batch_size": 2, "n_steps": 2, "base_lr": 1e-3,
+             "weight_decay": 1e-4, "seed": 3},
+    "model": {"noise_dimension": 1024, "condition_dimension": 16,
+              "latent_dimension": 8, "num_blocks": 2,
+              "architecture": "convnet",
+              "architecture_options": {"channels": 16, "bottleneck_dim": 32,
+                                       "spatial": 4, "lift_channels": 8}},
+    "dataset": {"dataset": "audio", "tokenization_strategy": "mdct",
+                "tokenization_config": {
+                    "frame_size": 4096, "window_size": 512,
+                    "coeff_scale": 4.0, "gain_norm": 0.05,
+                    "device_pool_clips": 4, "synthetic_family": "mixed"}},
+    "method": {"method": "improved_mean_flow",
+               "use_improved_mean_flow": True},
+    "training": {"sample_every": 1000, "sample_seed": 1, "sample_steps": 1,
+                 "checkpoint_step": 2, "ema_decay": 0.99},
+    "tpu": {"precision": "float32", "steps_per_call": 2},
+}
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """(config, checkpoint) of a run the port's trainer writes on the CPU."""
+    import copy
+
+    from meanflow_audio_codec_torch.configs import config_from_dict
+    from meanflow_audio_codec_torch.training.checkpoints import (
+        find_latest_checkpoint,
+    )
+    from meanflow_audio_codec_torch.training.trainer import train_flow
+
+    data = copy.deepcopy(EVAL_RUN)
+    workdir = tmp_path_factory.mktemp("eval_run")
+    data["training"]["workdir"] = str(workdir)
+    config = config_from_dict(data)
+    train_flow(config, device="cpu")
+    return config, find_latest_checkpoint(workdir / "checkpoints")
+
+
+def _clips(batch=2, length=4096):
+    gen = torch.Generator().manual_seed(21)
+    t = torch.arange(length) / 44100.0
+    tone = 0.3 * torch.sin(2 * torch.pi * 440.0 * t)[None, :, None]
+    return (tone + 0.1 * torch.randn(batch, length, 2,
+                                     generator=gen)).numpy()
+
+
+def test_evaluator_on_the_card_matches_the_cpu(device, eval_run):
+    """Float32 NFE 1 on 2 clips of 4096 samples, the same start noise: the
+    decoded audio on the card within relative L2 1e-5 of the CPU's, and the
+    MSE within rtol 1e-4."""
+    from meanflow_audio_codec_torch.evaluators import ComprehensiveEvaluator
+
+    config, checkpoint = eval_run
+    rows = 2 * num_frames_for_length(4096, 512, 256)
+    noise = {1: torch.randn(rows, 1024,
+                            generator=torch.Generator().manual_seed(22))}
+    decoded, results = [], []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the 3x3 convolutions in f32
+    try:
+        for where in (device, torch.device("cpu")):
+            evaluator = ComprehensiveEvaluator(checkpoint, config,
+                                               nfe_list=[1], timing_runs=0,
+                                               device=where)
+            quality = evaluator._quality
+
+            def keep(real, generated, quality=quality):
+                decoded.append(torch.from_numpy(generated).double())
+                return quality(real, generated)
+
+            evaluator._quality = keep
+            results.append(evaluator.evaluate(_clips(), noise=noise))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    got, ref = decoded
+    assert got.shape == ref.shape == (2, 4608, 2)
+    assert float((got - ref).norm() / ref.norm()) <= 1e-5
+    mse = [r["nfe_sweep"]["1"]["mse"] for r in results]
+    assert mse[0] == pytest.approx(mse[1], rel=1e-4)
+
+
+def test_evaluator_launches_the_transform_kernels(device, eval_run):
+    """On the card the evaluator tokenizes through the MDCT kernel (once per
+    evaluation) and decodes through the IMDCT kernel (once per NFE)."""
+    from meanflow_audio_codec_torch.evaluators import ComprehensiveEvaluator
+
+    config, checkpoint = eval_run
+    evaluator = ComprehensiveEvaluator(checkpoint, config, nfe_list=[1, 2],
+                                       timing_runs=1, latent_step=0.5,
+                                       device=device)
+    mdct_cuda_mod.launches = imdct_cuda_mod.launches = 0
+    results = evaluator.evaluate(_clips())
+    assert (mdct_cuda_mod.launches, imdct_cuda_mod.launches) == (1, 2)
+    assert results["bitstream_kbps_measured"] > 0
+    assert set(results["nfe_sweep"]) == {"1", "2"}

@@ -348,8 +348,13 @@ def test_factory_checkpoint_both_ways_and_param_count(name, tmp_path):
 
 def test_unknown_architecture_raises_jax_value_error():
     _, tcfg = _configs("mlp")
-    bad = config_from_dict({"model": dict(tcfg.to_dict()["model"],
-                                          architecture="transformer")})
+    # the config refuses it when read, as the JAX package's validation does
+    with pytest.raises(ValueError, match="architecture must be one of"):
+        config_from_dict({"model": dict(tcfg.to_dict()["model"],
+                                        architecture="transformer")})
+    # and the factory, past the config's validation
+    bad = config_from_dict({"model": tcfg.to_dict()["model"]})
+    object.__setattr__(bad, "architecture", "transformer")
     with pytest.raises(ValueError, match="Unknown architecture"):
         create_flow_model(bad)
     with pytest.raises(TypeError):

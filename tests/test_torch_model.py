@@ -280,9 +280,14 @@ def test_factory_rejects_unported_families_and_options():
     # ValueError
     assert isinstance(create_flow_model(config_from_dict(
         {"model": dict(base, architecture="mlp")})), torch.nn.Module)
+    # the config refuses it when read, as the JAX package's validation does;
+    # past the config's validation, the factory raises JAX's ValueError
+    with pytest.raises(ValueError, match="architecture must be one of"):
+        config_from_dict({"model": dict(base, architecture="transformer")})
+    unknown = config_from_dict({"model": base})
+    object.__setattr__(unknown, "architecture", "transformer")
     with pytest.raises(ValueError, match="Unknown architecture"):
-        create_flow_model(config_from_dict({"model": dict(
-            base, architecture="transformer")}))
+        create_flow_model(unknown)
     with pytest.raises(NotImplementedError):
         create_flow_model(config_from_dict({"model": dict(
             base, architecture="convnet",

@@ -433,10 +433,15 @@ def test_create_loss_strategy_matches_jax(method):
 
 
 def test_unknown_loss_strategy_raises():
-    cfg = config_from_dict({
-        "model": {"noise_dimension": 16, "condition_dimension": 8,
-                  "latent_dimension": 4, "num_blocks": 1},
-        "method": {"loss_strategy": "diffusion"}})
+    model = {"noise_dimension": 16, "condition_dimension": 8,
+             "latent_dimension": 4, "num_blocks": 1}
+    # the config refuses it when read, as the JAX package's validation does
+    with pytest.raises(ValueError, match="loss_strategy must be one of"):
+        config_from_dict({"model": model,
+                          "method": {"loss_strategy": "diffusion"}})
+    # and the factory, past the config's validation
+    cfg = config_from_dict({"model": model})
+    object.__setattr__(cfg, "loss_strategy", "diffusion")
     with pytest.raises(ValueError, match="Unknown loss_strategy"):
         obj.create_loss_strategy(cfg)
 

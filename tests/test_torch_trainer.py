@@ -379,9 +379,12 @@ def test_geometry_helpers():
 ], ids=["mnist", "objective", "devices", "orbax", "quantized"])
 def test_train_flow_refuses_what_is_not_ported(tmp_path, section, values,
                                                error):
-    config = config_from_dict(_tiny(tmp_path / "run", **{section: values}))
+    # an unknown tokenization or objective is refused when the config is
+    # read, as the JAX package's validation does; the rest by train_flow
     with pytest.raises(error) as info:
-        train_flow(config, device="cpu")
+        train_flow(config_from_dict(_tiny(tmp_path / "run",
+                                          **{section: values})),
+                   device="cpu")
     if error is NotImplementedError:
         assert "ROADMAP" in str(info.value)
     assert not (tmp_path / "run").exists()
@@ -452,16 +455,63 @@ def test_cli_keeps_the_config_without_flags(config_file, calls):
     assert config == config_from_dict(json.loads(config_file.read_text()))
 
 
-@pytest.mark.parametrize("flag", cli.UNPORTED_FLAGS)
+#: the root CLI's flags that the port's CLI refused before it took the
+#: flag-driven config: flag -> (value, the config's value it sets)
+ROOT_FLAGS = {
+    "--dataset": ("mnist", lambda c: c.dataset, "mnist"),
+    "--method": ("mean_flow", lambda c: c.method, "mean_flow"),
+    "--architecture": ("mlp", lambda c: c.architecture, "mlp"),
+    "--tokenization": ("reshape", lambda c: c.tokenization_strategy,
+                       "reshape"),
+    "--base-lr": ("0.002", lambda c: c.base_lr, 0.002),
+    "--weight-decay": ("0.5", lambda c: c.weight_decay, 0.5),
+    "--noise-dimension": ("96", lambda c: c.noise_dimension, 96),
+    "--condition-dimension": ("32", lambda c: c.condition_dimension, 32),
+    "--latent-dimension": ("12", lambda c: c.latent_dimension, 12),
+    "--num-blocks": ("3", lambda c: c.num_blocks, 3),
+    "--gamma": ("0.25", lambda c: c.gamma, 0.25),
+    "--full-interval-proportion": (
+        "0.25", lambda c: c.time_sampling_full_proportion, 0.25),
+    "--window-size": ("128", lambda c: c.tokenization_config["window_size"],
+                      128),
+    "--coeff-scale": ("2.0", lambda c: c.tokenization_config["coeff_scale"],
+                      2.0),
+    "--architecture-options": (
+        '{"channels": 8}', lambda c: c.architecture_options["channels"], 8),
+    "--grad-clip-norm": ("0.5", lambda c: c.grad_clip_norm, 0.5),
+    "--warmup-steps": ("7", lambda c: c.warmup_steps, 7),
+    "--lr-schedule": ("constant", lambda c: c.lr_schedule, "constant"),
+    "--lr-final-fraction": ("0.1", lambda c: c.lr_final_fraction, 0.1),
+}
+
+
+@pytest.mark.parametrize("flag", ROOT_FLAGS)
 def test_cli_refuses_the_root_cli_flags_it_does_not_port(config_file, calls,
-                                                         capsys, flag):
-    assert cli.main(["--config", str(config_file), flag, "1"]) == 2
-    assert calls == [] and "ROADMAP" in capsys.readouterr().err
+                                                         tmp_path, flag):
+    """Every root flag the port's CLI once refused now sets its field: in a
+    flag-driven run (the default config of --dataset) and, but for
+    --dataset, which only picks that default, over a --config file."""
+    value, read, want = ROOT_FLAGS[flag]
+    workdir = str(tmp_path / "w")
+    assert cli.main(["--workdir", workdir, flag, value]) == 0
+    runs = [["--config", str(config_file), flag, value]]
+    if flag != "--dataset":
+        assert cli.main(*runs) == 0
+    for config, resume in calls:
+        assert read(config) == want and resume is False
+    assert len(calls) == (1 if flag == "--dataset" else 2)
+    assert calls[0][0].workdir == workdir
 
 
-def test_cli_needs_a_config(calls, capsys):
+def test_cli_needs_a_config(calls, capsys, tmp_path):
+    """Without --config and --workdir the CLI stops (exit 2), as the root
+    CLI does; with --workdir alone it trains the default MNIST config."""
     assert cli.main(["--n-steps", "3"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "--config and/or --workdir" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["--config", "x.json", "--bogus"])
     assert calls == []
+    assert cli.main(["--workdir", str(tmp_path), "--n-steps", "3"]) == 0
+    (config, _), = calls
+    assert (config.dataset, config.n_steps, config.noise_dimension) == (
+        "mnist", 3, 784)
