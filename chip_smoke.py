@@ -34,6 +34,12 @@ and prints no result line):
      call (where one exists) with CUDA events, the MDCT and IMDCT at the
      10 s and train shapes too, and the two-pass GELU+GRN
      at the train shape beside the single read;
+  3a. gradients through the transform kernels: ``x.grad`` through
+     ``mdct_cuda`` and ``imdct_cuda`` at the codec shape against the plain
+     version's autograd (rtol 1e-4 / atol 1e-3), each backward launching
+     the other kernel, backward ms beside forward ms; then
+     ``MDCTLayer -> IMDCTLayer`` with a finite gradient (a path: its
+     launches are counted);
   4. the served path: ``AudioCodec.roundtrip`` at the full width of
      configs/frontier_v2.json (bf16 compute, seeded random weights) on four
      32768-sample stereo clips and one 10 s 44.1 kHz stereo clip;
@@ -43,9 +49,9 @@ and prints no result line):
      samples (2032 flow rows), 2 warm-up and 10 timed steps; then the same
      with ``fused_stage`` off (the default training path, as a yardstick),
      2 warm-up and 5 timed steps;
-     each path (and those of phases 7-12, 9a, 10a and 12a-12c) is driven with the
-     kernels' launch counts (and the count of each GELU+GRN kernel) set to
-     0 just before it and read just after;
+     each path (and those of phases 3a, 7-12, 8a, 9a, 10a and 12a-12c) is
+     driven with the kernels' launch counts (and the count of each
+     GELU+GRN kernel) set to 0 just before it and read just after;
   6. float32 checks: one full-width train step with ``fused_stage`` on
      against the same step with it off; the round trip and one small-batch
      fused train step on the card against the same on the CPU;
@@ -74,11 +80,27 @@ and prints no result line):
      ``encode_bytes`` and ``decode_bytes`` times and the stored kbps;
      ``decode(x)`` twice without a generator equal; then the codec CLI
      (encode, info, decode) on a 48 kHz WAV;
+  8a. (right after serving, on the trainer's workdir) W8A8 int8 serving:
+     ``AudioCodec.from_workdir(..., quantized=True)`` serving the same
+     EMA, config.json unchanged; a 10 s clip's round trip and v1 8-bit
+     bytes decoded within relative L2 0.05 of the bf16 codec's with the
+     same noise, the encoder's bytes equal; per call of the quantized
+     codec one MDCT launch an encode, one IMDCT launch and 72 int8 products
+     a decode (none in the encoder), counted with the bf16 reference run
+     outside the window; decode ms bf16 and int8 in turns at the 10
+     s clip and at 4 clips x 32768, and the int8 products' time beside the
+     bf16 GEMMs at their shapes and their bound; ``codec_cli decode
+     --quantized``; ``evaluate_all --quantized`` at 16 examples, NFE 1; 6
+     quantized streaming pushes (16 rows each: the padded int8 product),
+     each of the three a counted path of its own;
   9. streaming: the same length of clip through ``StreamingCodec`` in
      pushes of 4096 samples (16 frames), ms per push and the real-time
      factor; the streaming encoder against batch ``encode`` and the
      streaming decoder in 16- against 64-frame chunks, within relative L2
      2e-2 (bf16 compute; the measured max error is printed);
+  9b. the simple trainer (``training/simple_trainer``): ``train_epoch`` at
+     frontier-v2 width on the card, 4 flow-matching and 4 iMF steps on
+     seeded token batches, finite losses;
   9a. the corpus: ``tools/make_corpus`` writes 16 FLAC and 4 WAV clips of
      4.46 s (mixed family) into a temporary directory; the frames/s of
      ``build_audio_pipeline`` over it for 20 batches of 16 x 32768 x 2,
@@ -161,8 +183,9 @@ and prints no result line):
      the card against the CPU at one clip (relative L2 <= 1e-5), then
      profiles of one round trip and one bf16 train step with
      ``fused_stage`` on and off (device time by kernel, busy share);
-  14. a ``{"kernels": [...]}`` line (launches per path: round trip, train,
-     trainer, codec bytes, codec CLI, streaming, QAT trainer, eval_suite,
+  14. a ``{"kernels": [...]}`` line (launches per path: the transform
+     layers' gradient, round trip, train, trainer, codec bytes, codec CLI,
+     quantized serving, streaming, QAT trainer, eval_suite,
      the 64-clip evaluator, the exports, the corpus trainer, its exact
      stream and serving, each objective, each remat setting, the three
      family trainers, the two codecs' serving, the matrix, evaluate_all,
@@ -211,7 +234,7 @@ from meanflow_audio_codec_torch.models.factories import create_flow_model
 from meanflow_audio_codec_torch.ops import _build
 from meanflow_audio_codec_torch.ops import imdct_cuda as imdct_cuda_mod
 from meanflow_audio_codec_torch.ops import mdct_cuda as mdct_cuda_mod
-from meanflow_audio_codec_torch.ops import stage, stage_cuda
+from meanflow_audio_codec_torch.ops import quant, stage, stage_cuda
 from meanflow_audio_codec_torch.ops.imdct_cuda import imdct_cuda
 from meanflow_audio_codec_torch.ops.mdct import (
     MDCTConfig,
@@ -285,6 +308,13 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak, the same data sheet
+#: W8A8 serving: int8 products per decoder call at frontier-v2's 8 stages (4
+#: Dense and 5 convs a stage) and the int8 decode's bound against bf16's
+#: (the JAX package's tests/test_quant.py bound)
+INT8_PRODUCTS_PER_DECODE = 72
+QUANT_REL_L2 = 0.05
+SIMPLE_STEPS = 4  # train_epoch's steps per objective in the simple trainer
 
 KERNELS = {
     "mdct_cuda": dict(
@@ -2678,6 +2708,327 @@ def jvp_tape_probe(device: torch.device, card: str) -> None:
             objectives._jvp = port_jvp
 
 
+# ---------------------------------------------------------------------------
+# transform gradients, W8A8 int8 serving, the simple trainer (phases 3a,
+# 8a, 9b)
+# ---------------------------------------------------------------------------
+
+
+def check_transform_gradients(device: torch.device, results: dict) -> dict:
+    """``x.grad`` through ``mdct_cuda`` and ``imdct_cuda`` at the codec
+    shape (8 rows x 32768 samples, W 512, hop 256) against the plain
+    version's autograd on the card (rtol 1e-4 / atol 1e-3); each backward
+    launches the other kernel once; backward ms (``backward_ms``, the plain
+    version's ``plain_backward_ms``) beside the forward's. Then the path:
+    ``MDCTLayer -> IMDCTLayer`` on a stereo batch with a finite, nonzero
+    gradient, its launches returned."""
+    from meanflow_audio_codec_torch.ops.mdct_layers import IMDCTLayer, MDCTLayer
+
+    cfg = MDCTConfig(512, 256)
+    gen = torch.Generator(device).manual_seed(20)
+    nf = num_frames_for_length(32768, 512, 256)
+    cases = {"mdct_cuda": (mdct_cuda, mdct, (8, 32768), imdct_cuda_mod),
+             "imdct_cuda": (imdct_cuda, imdct, (8, nf, 512), mdct_cuda_mod)}
+    for name, (kernel, plain, shape, other) in cases.items():
+        x = torch.randn(shape, generator=gen, device=device)
+        grads, times = [], []
+        for fn in (kernel, plain):
+            a = x.clone().requires_grad_(True)
+            y = fn(a, cfg)
+            cot = torch.randn(y.shape, device=device,
+                              generator=torch.Generator(device).manual_seed(21))
+            before = other.launches
+            (grad,) = torch.autograd.grad(y, a, cot, retain_graph=True)
+            torch.cuda.synchronize()
+            if fn is kernel and other.launches != before + 1:
+                raise AssertionError(f"{name}'s backward did not launch "
+                                     f"{other.__name__.split('.')[-1]}")
+            grads.append(grad)
+            times.append(time_ms(lambda: torch.autograd.grad(
+                y, a, cot, retain_graph=True)))
+        abs_err, rel_err = _errors(grads[0], grads[1])
+        if not grads[0].abs().max() > 0:
+            raise AssertionError(f"{name}: zero gradient on the card")
+        torch.testing.assert_close(grads[0], grads[1], rtol=RTOL, atol=ATOL)
+        res = results[name]
+        res["backward_ms"], res["plain_backward_ms"] = times
+        res["backward_max_abs_err"] = abs_err
+        print(f"{name} backward, codec shape {tuple(shape)}: x.grad against "
+              f"the plain version's autograd max_abs_err {abs_err:.3e} "
+              f"max_rel_err {rel_err:.3e} (rtol {RTOL}, atol {ATOL}); "
+              f"backward {times[0]:.4f} ms (plain {times[1]:.4f} ms) beside "
+              f"forward {res['ms']:.4f} ms", flush=True)
+
+    stereo = torch.randn(4, 32768, 2, generator=gen, device=device,
+                         requires_grad=True)
+    layers = (MDCTLayer(512, 256), IMDCTLayer(512, 256))
+    zero_launches()
+    layers[1](layers[0](stereo)).square().sum().backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not (torch.isfinite(stereo.grad).all() and stereo.grad.abs().max() > 0):
+        raise AssertionError("MDCTLayer -> IMDCTLayer: gradient not finite "
+                             "or zero")
+    print(f"MDCTLayer -> IMDCTLayer on the card, 4 stereo clips x 32768: "
+          f"finite nonzero gradient; launches {launches}", flush=True)
+    for kernel in ("mdct_cuda", "imdct_cuda"):
+        if launches[kernel] != 2:
+            raise AssertionError(f"{kernel}: {launches[kernel]} launches on "
+                                 "the layers' forward and backward, not 2")
+    return launches
+
+
+def _int8_shapes(codec: AudioCodec, latents, gains) -> list:
+    """The (rows, K, N) of each int8 product of one decode."""
+    shapes = []
+    product = quant._int_product
+
+    def record(a, w):
+        shapes.append((a.shape[0], a.shape[1], w.shape[0]))
+        return product(a, w)
+
+    quant._int_product = record
+    try:
+        codec.decode(latents, gains=gains,
+                     generator=torch.Generator(codec.device).manual_seed(0))
+    finally:
+        quant._int_product = product
+    return shapes
+
+
+def int8_product_times(shapes: list, card: str, label: str) -> dict:
+    """One decoder call's int8 products (``torch._int_mm``) timed with CUDA
+    events at their shapes, beside the bf16 GEMMs they replace (one
+    ``F.linear`` each) and their bound: 2 M K N operations at the dense int8
+    peak (1979 TOPS) against the int8 operands read and the int32 result
+    written at 3.35 TB/s, per distinct shape, times its count."""
+    gen = torch.Generator("cuda").manual_seed(22)
+    total = dict(ms=0.0, bf16_ms=0.0, bound_ms=0.0)
+    bound_by = collections.Counter()
+    for (rows, k, n), count in collections.Counter(shapes).items():
+        a = torch.randint(-127, 128, (rows, k), generator=gen,
+                          device="cuda").to(torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen,
+                          device="cuda").to(torch.int8)
+        ab, wb = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        ms = time_ms(lambda: quant.int_product_card(a, w))
+        bf16_ms = time_ms(lambda: F.linear(ab, wb))
+        t_ops = 2.0 * rows * k * n / PEAK_INT8_OPS
+        t_bytes = (rows * k + k * n + 4.0 * rows * n) / PEAK_BYTES_PER_S
+        total["ms"] += count * ms
+        total["bf16_ms"] += count * bf16_ms
+        total["bound_ms"] += count * 1e3 * max(t_ops, t_bytes)
+        bound_by["operations" if t_ops >= t_bytes else "bytes"] += count
+        print(f"[{card}] int8 product {label} M={rows} K={k} N={n} x{count}: "
+              f"_int_mm {ms:.4f} ms, bf16 F.linear {bf16_ms:.4f} ms, bound "
+              f"{1e3 * max(t_ops, t_bytes):.4f} ms", flush=True)
+    total["bound_by"] = dict(bound_by)
+    return total
+
+
+def quantized_serving_path(device: torch.device, card: str, workdir: Path,
+                           scratch: Path, bf16: AudioCodec) -> dict:
+    """Serve the trainer phase's run through the W8A8 int8 decoder
+    (``AudioCodec.from_workdir(..., quantized=True)``) beside its bf16
+    codec ``bf16`` on the same checkpoint: the same parameters and
+    config.json left as it was; a 10 s clip's round trip and its v1 8-bit
+    bytes decoded within relative L2 0.05 of bf16's (same noise), the
+    encoder's bytes equal; per quantized call one MDCT launch an encode,
+    one IMDCT launch and 72 int8 products a decode, none in the encoder
+    (the bf16 reference runs after the counted window); decode ms of
+    both at the 10 s clip (1721 rows) and the round trip's batch (4 clips x
+    32768, 508 rows), in turns bf16, int8, int8, bf16; the int8 products'
+    time; ``codec_cli decode --quantized``; ``evaluate_all --quantized`` at
+    16 examples, NFE 1; a streaming run of 6 pushes (16 rows each: the
+    padded ``_int_mm``). Returns the launch counts of the served round trip
+    and bytes, of the CLI, of ``evaluate_all`` and of the streaming run,
+    each counted alone."""
+    from meanflow_audio_codec_torch.tools import codec_cli, evaluate_all
+
+    on_disk = (workdir / "config.json").read_bytes()
+    codec = AudioCodec.from_workdir(workdir, quantized=True)
+    _same_weights(codec, bf16.model.state_dict(), "the quantized load")
+    gen = torch.Generator(device).manual_seed(13)
+    requests = {"10 s clip": synth_audio(1, 10 * SAMPLE_RATE, gen, device),
+                "4 clips x 32768": synth_audio(4, 32768, gen, device)}
+    for audio in requests.values():  # warm-up: plans at these row counts
+        codec.roundtrip(audio, generator=gen)
+    torch.cuda.synchronize()
+
+    def expect(call: str, mdct_n: int, imdct_n: int, products: int) -> None:
+        """The launches and int8 products since the window opened."""
+        got = (mdct_cuda_mod.launches, imdct_cuda_mod.launches,
+               quant.int8_products)
+        if got != (mdct_n, imdct_n, products):
+            raise AssertionError(
+                f"after the quantized {call}: MDCT, IMDCT launches and int8 "
+                f"products {got}, not {(mdct_n, imdct_n, products)}")
+
+    clip = requests["10 s clip"]
+    zero_launches()
+    quant.int8_products = 0
+    latents, gains = codec.encode_with_gains(clip)
+    expect("encode", 1, 0, 0)
+    out = codec.decode(latents, gains=gains,
+                       generator=torch.Generator(device).manual_seed(4))
+    expect("decode", 1, 1, INT8_PRODUCTS_PER_DECODE)
+    q_data = codec.encode_bytes(clip, bits=8)
+    expect("encode_bytes", 2, 1, INT8_PRODUCTS_PER_DECODE)
+    q_bytes = codec.decode_bytes(q_data, generator=gen.manual_seed(5))
+    expect("decode_bytes", 2, 2, 2 * INT8_PRODUCTS_PER_DECODE)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    # the bf16 reference, outside the counted window
+    ref = bf16.decode(latents, gains=gains,
+                      generator=torch.Generator(device).manual_seed(4))
+    data = bf16.encode_bytes(clip, bits=8)
+    if q_data != data:
+        raise AssertionError("the quantized codec's encoder bytes differ "
+                             "from bf16's")
+    b_bytes = bf16.decode_bytes(data, generator=gen.manual_seed(5))
+    errors = {"round trip": _rel_l2(out, ref), "bytes": _rel_l2(q_bytes,
+                                                                b_bytes)}
+    for what, (abs_err, rel) in errors.items():
+        print(f"[{card}] int8 vs bf16 decode, 10 s clip, {what}: "
+              f"max_abs_err {abs_err:.3e} rel_l2 {rel:.4e} "
+              f"(<= {QUANT_REL_L2})", flush=True)
+        if not (rel <= QUANT_REL_L2 and torch.isfinite(out).all()):
+            raise AssertionError(f"int8 decode off bf16's: {what} {rel}")
+    print(f"[{card}] quantized serving: {INT8_PRODUCTS_PER_DECODE} int8 "
+          f"products and one IMDCT launch per decoder call, one MDCT launch "
+          f"per encode, no int8 product in the encoder; launches "
+          f"{launches}", flush=True)
+
+    for name, audio in requests.items():
+        lat, gn = bf16.encode_with_gains(audio)
+        times = {"bf16": [], "int8": []}
+        for which in ("bf16", "int8", "int8", "bf16"):
+            served = codec if which == "int8" else bf16
+            ms, _ = _wall_ms(lambda: served.decode(
+                lat, gains=gn, generator=gen.manual_seed(6)), REPEATS)
+            times[which].append(ms)
+        rows = lat.shape[0] * lat.shape[1]
+        print(f"[{card}] decode ms, {name} ({rows} rows), medians of "
+              f"{REPEATS} in turns bf16/int8/int8/bf16: bf16 "
+              f"{times['bf16'][0]:.3f}, {times['bf16'][1]:.3f}; int8 "
+              f"{times['int8'][0]:.3f}, {times['int8'][1]:.3f}", flush=True)
+        products = int8_product_times(_int8_shapes(codec, lat, gn), card,
+                                      name)
+        print(f"[{card}] int8 products of one decoder call, {name}: "
+              f"{products['ms']:.4f} ms (the bf16 GEMMs at the same shapes "
+              f"{products['bf16_ms']:.4f} ms), bound "
+              f"{products['bound_ms']:.4f} ms ({products['bound_by']})",
+              flush=True)
+
+    def counted(label: str, kernels: tuple, fn) -> dict:
+        """Run ``fn`` in a launch window of its own; every kernel in
+        ``kernels`` must launch and the int8 decoder must run."""
+        zero_launches()
+        quant.int8_products = 0
+        fn()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for kernel in kernels:
+            if counts[kernel] == 0:
+                raise AssertionError(f"{kernel} was not launched by "
+                                     f"{label}")
+        if quant.int8_products == 0:
+            raise AssertionError(f"{label} ran no int8 product")
+        return counts
+
+    macb, wav = scratch / "int8.macb", scratch / "int8.wav"
+    macb.write_bytes(data)
+
+    def cli_decode() -> None:
+        if codec_cli.main(["decode", str(macb), "--workdir", str(workdir),
+                           "--quantized", "-o", str(wav)]) != 0:
+            raise AssertionError("codec_cli decode --quantized failed")
+
+    paths = {"quantized_serving": launches,
+             "quantized_cli": counted("codec_cli decode --quantized",
+                                      ("imdct_cuda",), cli_decode)}
+    frames, channels, rate = _read_wav(wav)
+    if quant.int8_products != INT8_PRODUCTS_PER_DECODE or channels != 2:
+        raise AssertionError(f"codec_cli decode --quantized: "
+                             f"{quant.int8_products} int8 products, "
+                             f"{channels} channels")
+    print(f"codec_cli decode --quantized: {frames} frames x {channels} at "
+          f"{rate} Hz, {quant.int8_products} int8 products; launches "
+          f"{paths['quantized_cli']}", flush=True)
+
+    configs_dir = scratch / "int8_configs"
+    configs_dir.mkdir()
+    shutil.copy(workdir / "config.json", configs_dir / "frontier_v2.json")
+    csv_path = scratch / "int8_metrics.csv"
+    t0 = time.perf_counter()
+    paths["quantized_evaluate_all"] = counted(
+        "evaluate_all --quantized", ("mdct_cuda", "imdct_cuda"),
+        lambda: evaluate_all.main([
+            "--configs", str(configs_dir), "--quantized", "--nfe", "1",
+            "--num-samples", "16", "--timing-runs", "1", "--csv",
+            str(csv_path), "--results-name", "evaluation_results_int8.json"]))
+    results = json.loads((workdir / "evaluation_results_int8.json"
+                          ).read_text())
+    _finite_numbers(results, "evaluate_all --quantized")
+    entry = results["nfe_sweep"]["1"]
+    if len(csv_path.read_text().splitlines()) != 2:
+        raise AssertionError("evaluate_all --quantized wrote no row")
+    print(f"[{card}] evaluate_all --quantized, 16 clips, NFE 1: "
+          f"{time.perf_counter() - t0:.1f} s, sampling "
+          f"{1e3 * entry['inference']['mean_sec']:.3f} ms, si_snr_db "
+          f"{entry['si_snr_db']:.3f}, {quant.int8_products} int8 products; "
+          f"launches {paths['quantized_evaluate_all']}", flush=True)
+
+    duplex = codec.streaming(seed=0)
+    outs = []
+    paths["quantized_streaming"] = counted(
+        "quantized streaming", ("mdct_cuda", "imdct_cuda"),
+        lambda: outs.extend(duplex.push(clip[:, i:i + STREAM_CHUNK])
+                            for i in range(0, 6 * STREAM_CHUNK,
+                                           STREAM_CHUNK)))
+    pushed = torch.cat(outs, dim=1)
+    if not torch.isfinite(pushed).all():
+        raise AssertionError("quantized streaming: not finite")
+    print(f"[{card}] quantized streaming, 6 pushes of {STREAM_CHUNK} "
+          f"samples: {pushed.shape[1]} samples out, finite, "
+          f"{quant.int8_products} int8 products (rows <= 16 padded); "
+          f"launches {paths['quantized_streaming']}", flush=True)
+    if (workdir / "config.json").read_bytes() != on_disk:
+        raise AssertionError("quantized serving changed config.json")
+    return paths
+
+
+def simple_trainer_path(device: torch.device, card: str) -> None:
+    """``training/simple_trainer``: ``train_epoch`` at frontier-v2 width
+    (bf16) on the card, 4 flow-matching then 4 iMF steps on seeded token
+    batches (2032 rows of 1024, the train step's); finite losses."""
+    from meanflow_audio_codec_torch.training import simple_trainer
+
+    config = load_config(CONFIG)
+    gen = torch.Generator(device).manual_seed(23)
+    batches = [torch.randn(2 * TRAIN_CLIPS * 127, config.noise_dimension,
+                           generator=gen, device=device)
+               for _ in range(SIMPLE_STEPS)]
+    for improved in (False, True):
+        state = simple_trainer.create_train_state(
+            create_flow_model(config), torch.Generator().manual_seed(0),
+            len(batches[0]), device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = simple_trainer.train_epoch(
+            state, gen, batches, use_improved_mean_flow=improved)
+        seconds = time.perf_counter() - t0
+        if not math.isfinite(loss) or state.step != SIMPLE_STEPS:
+            raise AssertionError(f"simple trainer: loss {loss}, step "
+                                 f"{state.step}")
+        print(f"[{card}] simple trainer, {'iMF' if improved else 'FM'}: "
+              f"{SIMPLE_STEPS} steps of {len(batches[0])} token rows in "
+              f"{seconds:.2f} s (first step included), mean loss "
+              f"{loss:.5f}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -2729,8 +3080,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # the CUDA sources and the rANS coder (g++), all compilers at once
-    logs = _build.build(("mdct", "imdct") if args.transforms_only
-                        else _build.SOURCES + tuple(_build.HOST_SOURCES))
+    logs = _build.build(
+        ("mdct", "imdct") if args.transforms_only
+        else _build.SOURCES + tuple(_build.HOST_SOURCES))
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for name, log in logs.items():
@@ -2763,9 +3115,11 @@ def main() -> int:
     sass_profile()
     results = {**check_kernels(device)}
     lap("transforms")
+    paths = {"transform_gradients": check_transform_gradients(device,
+                                                              results)}
+    lap("transform gradients")
     results.update(check_stage_kernels(device))
     lap("stage kernels")
-    paths = {}
     paths["roundtrip"], codec, requests = roundtrip_path(device, card)
     lap("round trip")
     paths["train"], state, step, batch, _ = train_path(device, card)
@@ -2791,6 +3145,10 @@ def main() -> int:
             device, card, workdir, ema, Path(tmp))
         del ema
         lap("codec")
+        paths.update(quantized_serving_path(device, card, workdir,
+                                            Path(tmp), served))
+        torch.cuda.empty_cache()
+        lap("quantized serving")
         paths["qat_trainer"] = qat_trainer_path(device, card, workdir,
                                                 Path(tmp))
         torch.cuda.empty_cache()
@@ -2807,6 +3165,8 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     lap("streaming")
+    simple_trainer_path(device, card)
+    lap("simple trainer")
     with tempfile.TemporaryDirectory() as corpus_tmp:
         corpus_scratch = Path(corpus_tmp)
         paths.update(corpus_phase(device, card, corpus_scratch))

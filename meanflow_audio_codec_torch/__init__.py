@@ -12,17 +12,20 @@ versions.
 
 Subpackages:
   ops       — MDCT/IMDCT (direct and FFT plain versions, CUDA kernel
-              wrappers), the MDCT and reshape tokenizers, time
-              embeddings, samplers, the latent quantizers and MACB
-              bitstream, the rANS coder's binding
+              wrappers with their gradients, the MDCT layers), the MDCT
+              and reshape tokenizers, time embeddings, samplers, the
+              latent quantizers and MACB bitstream, the rANS coder's
+              binding, the W8A8 int8 products of quantized serving
   models    — the ConvNeXt, MLP, MLP-Mixer and simple-conv flows
-  training  — the token adapter, the objectives, optimiser, train steps
-              and the trainer (``python -m meanflow_audio_codec_torch.train``)
+  training  — the token adapter, the objectives, optimiser, train steps,
+              the trainer (``python -m meanflow_audio_codec_torch.train``)
+              and the minimal ``simple_trainer``
   data      — synthetic and file audio, the loaders, MNIST and the device
               replay pool
   tools     — the codec CLI, ``make_corpus`` and ``matrix_smoke``
 
-``codec.AudioCodec`` serves a trained run (``from_workdir``, the byte API);
+``codec.AudioCodec`` serves a trained run (``from_workdir``, the byte API,
+``quantized=True`` for the int8 decoder);
 ``streaming`` runs it on chunked audio.
 """
 

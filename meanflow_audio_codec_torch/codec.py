@@ -6,6 +6,7 @@ MDCT frame is one example of the flow, so the latent sequence grows with the
 audio.
 
     codec = AudioCodec.from_workdir("outputs/imf_frontier_v2")  # device="cuda"
+    int8 = AudioCodec.from_workdir("outputs/imf_frontier_v2", quantized=True)
     data = codec.encode_bytes(audio)                 # MACB, rANS-coded
     recon = codec.decode_bytes(data)                 # [B, T', C]
     recon = codec.roundtrip(audio)
@@ -45,6 +46,14 @@ from meanflow_audio_codec_torch.training.trainer import (
 )
 
 
+def with_quantized_decoder(config: CodecConfig) -> CodecConfig:
+    """``config`` with ``architecture_options["quantized"] = True``: the
+    convnet decoder in W8A8 int8 (another family's factory refuses the
+    option with a ``TypeError``, as in the JAX package)."""
+    return dataclasses.replace(config, architecture_options={
+        **config.architecture_options, "quantized": True})
+
+
 class AudioCodec:
     """Tokenizer + encoder + 1-NFE flow decoder, in inference mode.
 
@@ -78,11 +87,12 @@ class AudioCodec:
                         quantized: bool = False) -> "AudioCodec":
         """Serve a checkpoint: the EMA parameters when it holds them, else
         the live ones (a full ``step_N.msgpack`` or a
-        ``serving_step_N.msgpack``)."""
+        ``serving_step_N.msgpack``). ``quantized`` serves the same
+        checkpoint through the dynamic W8A8 int8 decoder (``ops/quant.py``;
+        the parameters are unchanged, the encoder stays in the compute
+        dtype)."""
         if quantized:
-            raise NotImplementedError(
-                "W8A8 int8 serving (quantized=True) is not ported yet "
-                "(ROADMAP queue 1 item 11)")
+            config = with_quantized_decoder(config)
         noise_dim = effective_noise_dimension(config)
         if noise_dim != config.noise_dimension:
             config = dataclasses.replace(config, noise_dimension=noise_dim)

@@ -3,6 +3,13 @@
 Entry points default to ``"cuda"`` and raise when no card is present: a
 caller who wants the CPU (the plain PyTorch versions of the kernels) asks
 for it with ``device="cpu"``. There is no silent fallback.
+
+The port keeps torch's default TF32 settings and flips no process-wide
+flag: on the card a ``precision: "float32"`` run convolves in TF32 unless
+the caller sets ``torch.backends.cudnn.allow_tf32 = False`` (as
+``chip_smoke.py`` and the CUDA tests do). This mirrors JAX, whose default
+precision also lets float32 products and convolutions run in TF32 on
+NVIDIA cards. bfloat16 runs are not affected.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ The ``fused_stage`` branches (``FiLM(fuse_norm=True)``, GRN with
 ``fused_gelu=True``, ``ConvNeXtBlock(fused_stage=True)``) run the stage's
 normalisation segments through the fused ops of ``ops/stage.py`` (hand-written
 CUDA kernels on the card) with the same parameters as the plain branches.
+``quantized=True`` on :class:`Dense`, :class:`Conv2d` and
+:class:`ConvNeXtBlock` serves their products in dynamic W8A8 int8
+(``ops/quant.py``, the JAX package's ``quant_injection``), with the same
+parameters, so a bf16 checkpoint loads unchanged.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from meanflow_audio_codec_torch.models.remat import remat
+from meanflow_audio_codec_torch.ops.quant import int8_conv2d, int8_linear
 from meanflow_audio_codec_torch.ops.stage import (
     fused_gelu_grn,
     fused_ln_film,
@@ -32,16 +37,21 @@ from meanflow_audio_codec_torch.ops.stage import (
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``compute_dtype`` (Flax ``Dense(dtype=...)``)."""
+    """``nn.Linear`` computing in ``compute_dtype`` (Flax ``Dense(dtype=...)``);
+    in W8A8 int8 when ``quantized``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quantized: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        self.quantized = quantized
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.quantized:
+            return int8_linear(x.to(dt), self.weight.to(dt), bias)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -56,20 +66,26 @@ class Conv2d(nn.Conv2d):
     """Square-kernel convolution on ``[B, H, W, C]`` with Flax "SAME" padding.
 
     A stride-2 3x3 conv on an even grid pads (0, 1), not torch's symmetric 1,
-    so the padding is computed per input size and applied with ``F.pad``.
+    so the padding is computed per input size and applied with ``F.pad``
+    (or by the int8 im2col when ``quantized``).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, compute_dtype: torch.dtype = torch.float32):
+                 stride: int = 1, compute_dtype: torch.dtype = torch.float32,
+                 quantized: bool = False):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=0)
         self.compute_dtype = compute_dtype
+        self.quantized = quantized
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         k, s = self.kernel_size[0], self.stride[0]
         h_lo, h_hi = _same_padding(x.shape[1], k, s)
         w_lo, w_hi = _same_padding(x.shape[2], k, s)
+        if self.quantized:
+            return int8_conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                               stride=s, padding=((h_lo, h_hi), (w_lo, w_hi)))
         # NHWC storage viewed as NCHW is channels_last: no copy on the card
         h = F.pad(x.to(dt).permute(0, 3, 1, 2), (w_lo, w_hi, h_lo, h_hi))
         y = F.conv2d(h, self.weight.to(dt), self.bias.to(dt), stride=s)
@@ -136,20 +152,23 @@ class ConvNeXtBlock(nn.Module):
     the 3x3 conv and the GELU + GRN through the fused ops.
     ``remat_segments=True`` recomputes the LN and the GELU + GRN in the
     backward pass and keeps the products' outputs (``models/remat.py``).
+    ``quantized=True`` serves the three convs in W8A8 int8.
     """
 
     def __init__(self, dim: int, use_grn: bool = True,
                  layer_scale_init_value: float = 1e-6,
                  fused_stage: bool = False, remat_segments: bool = False,
+                 quantized: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fused_stage = fused_stage
         self.remat_segments = remat_segments
-        self.conv = Conv2d(dim, dim, 3, compute_dtype=compute_dtype)
-        self.expand = Dense(dim, 2 * dim, compute_dtype=compute_dtype)
+        q = dict(compute_dtype=compute_dtype, quantized=quantized)
+        self.conv = Conv2d(dim, dim, 3, **q)
+        self.expand = Dense(dim, 2 * dim, **q)
         self.grn = (GlobalResponseNormalization(2 * dim, fused_gelu=fused_stage)
                     if use_grn else None)
-        self.contract = Dense(2 * dim, dim, compute_dtype=compute_dtype)
+        self.contract = Dense(2 * dim, dim, **q)
         self.layer_scale = (
             nn.Parameter(torch.full((dim,), layer_scale_init_value))
             if layer_scale_init_value > 0 else None)

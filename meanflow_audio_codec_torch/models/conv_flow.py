@@ -44,7 +44,10 @@ class ConvStage(nn.Module):
     recomputes the LN + FiLM and the block's elementwise segments in the
     backward pass and keeps the products' outputs (``dots_saveable``; the
     FiLM's small condition projection, [B, 2C], is recomputed with its
-    segment).
+    segment). ``quantized`` serves the four Dense layers and the five
+    convolutions (the 1x1 lift, the block's three, the 1x1 back) in W8A8
+    int8; FiLM's projection stays in the compute dtype, as in the JAX
+    package.
     """
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
@@ -52,6 +55,7 @@ class ConvStage(nn.Module):
                  bottleneck_dim: int = 128, channels: int | None = None,
                  spatial: int | None = None, lift_channels: int | None = None,
                  fused_stage: bool = False, remat_segments: bool = False,
+                 quantized: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_blocks = num_blocks
@@ -63,23 +67,24 @@ class ConvStage(nn.Module):
         grid_channels = lift_channels if lift_channels is not None else channels
         self.grid_channels = grid_channels
         dt = dict(compute_dtype=compute_dtype)
-        self.bottleneck_in = Dense(noise_dimension, bottleneck_dim, **dt)
+        q = dict(dt, quantized=quantized)
+        self.bottleneck_in = Dense(noise_dimension, bottleneck_dim, **q)
         self.lift = Dense(bottleneck_dim,
-                          self.spatial * self.spatial * grid_channels, **dt)
+                          self.spatial * self.spatial * grid_channels, **q)
         # 1x1 convs on the channels-last grid are Dense layers
-        self.lift_conv = (Dense(lift_channels, channels, **dt)
+        self.lift_conv = (Dense(lift_channels, channels, **q)
                           if lift_channels is not None else None)
         self.fused_stage = fused_stage
         self.film = FiLM(condition_dimension, channels, fuse_norm=fused_stage,
                          **dt)
         self.block = ConvNeXtBlock(channels, use_grn=use_grn,
                                    fused_stage=fused_stage,
-                                   remat_segments=remat_segments, **dt)
-        self.unlift_conv = (Dense(channels, lift_channels, **dt)
+                                   remat_segments=remat_segments, **q)
+        self.unlift_conv = (Dense(channels, lift_channels, **q)
                             if lift_channels is not None else None)
         self.bottleneck_out = Dense(
-            self.spatial * self.spatial * grid_channels, bottleneck_dim, **dt)
-        self.out = Dense(bottleneck_dim, noise_dimension, **dt)
+            self.spatial * self.spatial * grid_channels, bottleneck_dim, **q)
+        self.out = Dense(bottleneck_dim, noise_dimension, **q)
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
         h = gelu(self.bottleneck_in(x))
@@ -148,7 +153,9 @@ class ConditionalConvFlow(nn.Module):
     ``dots_saveable`` / ``checkpoint_dots`` each stage checkpoints its
     elementwise segments and keeps the products' outputs, under policy None
     / ``nothing_saveable`` the stage is recomputed whole
-    (``models/remat.py``).
+    (``models/remat.py``). ``quantized`` serves every decoder stage's
+    products in W8A8 int8 (:class:`ConvStage`); the encoder, ``latent_proj``
+    and the conditioning stay in the compute dtype, as in the JAX package.
     """
 
     architecture = "convnet"  # its table in weights.py
@@ -158,7 +165,7 @@ class ConditionalConvFlow(nn.Module):
                  channels: int | None = None, bottleneck_dim: int = 128,
                  spatial: int | None = None, lift_channels: int | None = None,
                  fused_stage: bool = False, remat: bool = False,
-                 remat_policy: str | None = None,
+                 remat_policy: str | None = None, quantized: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         check_policy(remat_policy)
@@ -176,7 +183,8 @@ class ConditionalConvFlow(nn.Module):
                       use_grn=use_grn, bottleneck_dim=bottleneck_dim,
                       channels=channels, spatial=spatial,
                       lift_channels=lift_channels, fused_stage=fused_stage,
-                      remat_segments=segments, compute_dtype=compute_dtype)
+                      remat_segments=segments, quantized=quantized,
+                      compute_dtype=compute_dtype)
             for _ in range(num_blocks)
         ])
         self.latent_proj = Dense(latent_dimension, condition_dimension,

@@ -1,8 +1,9 @@
 """Model factory; counterpart of ``meanflow_audio_codec_tpu/models/factories.py``.
 
 ``create_flow_model(config)`` builds the family ``config.architecture`` names
-(default ``mlp``): ``convnet`` (with its ``fused_stage``, ``remat`` and
-``remat_policy`` options), ``mlp``, ``mlp_mixer`` and ``simple_conv``.
+(default ``mlp``): ``convnet`` (with its ``fused_stage``, ``remat``,
+``remat_policy`` and the serving-only ``quantized`` options), ``mlp``,
+``mlp_mixer`` and ``simple_conv``.
 ``architecture_options`` pass straight to the family's builder, as in the
 JAX package, so an option the family does not take raises ``TypeError``.
 """
@@ -30,9 +31,6 @@ PRECISION_DTYPES = {
     "bfloat16": torch.bfloat16,
     "mixed": torch.bfloat16,  # bf16 compute, f32 params
 }
-
-#: options whose code paths the port does not have yet
-_UNPORTED_OPTIONS = ("quantized",)
 
 
 def compute_dtype_for(config: CodecConfig) -> torch.dtype:
@@ -122,16 +120,12 @@ def create_flow_model(config: CodecConfig,
         raise ValueError(
             f"Unknown architecture: {architecture}. "
             "Must be one of: 'mlp', 'convnet', 'mlp_mixer', 'simple_conv'")
-    options = dict(config.architecture_options)
-    for name in _UNPORTED_OPTIONS:
-        if options.pop(name, False):
-            raise NotImplementedError(f"architecture option {name!r} is not "
-                                      "ported yet")
     model = builder(noise_dimension=config.noise_dimension,
                     latent_dimension=config.latent_dimension,
                     num_blocks=config.num_blocks,
                     condition_dimension=config.condition_dimension,
-                    compute_dtype=compute_dtype_for(config), **options)
+                    compute_dtype=compute_dtype_for(config),
+                    **config.architecture_options)
     if (config.loss_weighting or "uniform") == "learned":
         attach_learned_weighting(model)
     return init_weights(model, generator)

@@ -26,6 +26,12 @@ def _per_example_sq(delta: torch.Tensor) -> torch.Tensor:
     return (delta * delta).sum(dim=tuple(range(1, delta.ndim)))
 
 
+def weighted_l2_loss(pred: torch.Tensor, target: torch.Tensor,
+                     p: float = 1.0, c: float = 1e-3) -> torch.Tensor:
+    """Adaptively weighted L2: ``mean(sg(1/(||d||^2+c)^p) * ||d||^2)``."""
+    return weighted_l2_per_example(pred, target, p, c).mean()
+
+
 def weighted_l2_per_example(pred: torch.Tensor, target: torch.Tensor,
                             p: float = 1.0, c: float = 1e-3) -> torch.Tensor:
     """Adaptively weighted L2 per example: ``sg(1/(||d||^2+c)^p) * ||d||^2``."""
@@ -54,6 +60,13 @@ def adaptive_weighted_per_example(err: torch.Tensor, gamma: float = 0.5,
     delta_sq = (err * err).mean(dim=tuple(range(1, err.ndim)))
     w = (1.0 / (delta_sq + c) ** (1.0 - gamma)).detach()
     return w * delta_sq
+
+
+def adaptive_weighted_loss(err: torch.Tensor, gamma: float = 0.5,
+                           c: float = 1e-3) -> torch.Tensor:
+    """Mean flow's adaptive reweighting, ``mean(sg(1/(e+c)^(1-gamma)) * e)``
+    with ``e`` the per-example mean squared error."""
+    return adaptive_weighted_per_example(err, gamma, c).mean()
 
 
 def time_dependent_weight(t: torch.Tensor, c: float = 1e-2) -> torch.Tensor:
@@ -111,6 +124,14 @@ def apply_loss_weighting(per_example: torch.Tensor, t: torch.Tensor,
         return (w * per_example).mean() + reg
     raise ValueError(f"Unknown loss_weighting: {weighting}. Must be one of: "
                      "'uniform', 'time_dependent', 'learned'")
+
+
+def normalized_mse_loss(pred: torch.Tensor, target: torch.Tensor,
+                        eps: float = 1e-8) -> torch.Tensor:
+    """``||pred - target||^2 / (||target||^2 + eps)`` per example, meaned."""
+    num = _per_example_sq(pred - target)
+    den = _per_example_sq(target)
+    return (num / (den + eps)).mean()
 
 
 def ema(mu, dx, beta: float = 0.99):

@@ -63,6 +63,15 @@ class MDCTConfig:
 # ============================================================================
 
 
+def sine_window(window_length: int) -> torch.Tensor:
+    """Princen-Bradley sine window ``w[n] = sin(pi (n + 1/2) / N)``, float32,
+    computed in float32 as the JAX package's ``sine_window``."""
+    if window_length <= 0:
+        raise ValueError(f"Window length must be positive, got {window_length}")
+    n = torch.arange(window_length, dtype=torch.float32)
+    return torch.sin(torch.pi * (n + PRINCEN_BRADLEY_OFFSET) / window_length)
+
+
 @functools.lru_cache(maxsize=32)
 def _window_np(window_size: int) -> np.ndarray:
     n = np.arange(2 * window_size, dtype=np.float64)

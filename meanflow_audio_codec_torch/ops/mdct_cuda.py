@@ -6,6 +6,14 @@ kernel, or the wrapper raises. ``launches`` counts kernel launches. The kernel
 tiles all rows' frame slots as one GEMM on the IMDCT's tile core
 (``csrc/mdct.cu``), so its shared memory does not depend on W, hop or the
 signal length.
+
+On the card the kernel call is an ``autograd.Function`` whose backward is
+the JAX kernel's ``custom_vjp`` rule, ``overlap_add(g @ WB^T)`` over the
+covered span ``(nf - 1) hop + 2W``, cut to the signal's length (the span
+is longer than the signal whenever hop <= W, so JAX's zero padding never
+applies). That overlap-add is the IMDCT kernel's computation at scale 1, so
+the backward launches the IMDCT kernel (``ops/imdct_cuda.py``, counted
+there); its own backward launches this kernel again.
 """
 
 from __future__ import annotations
@@ -43,9 +51,56 @@ def _kernel():
     return fn
 
 
-def mdct_cuda(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
-    """Forward MDCT, ``(..., T) -> (..., n_frames, W)``, float32."""
+def launch(x2d: torch.Tensor, window_size: int, hop: int) -> torch.Tensor:
+    """The kernel on a contiguous float32 ``[rows, T]`` CUDA signal:
+    ``[rows, nf, W]`` coefficients. Counts the launch."""
     global launches
+    w = window_size
+    rows, length = x2d.shape
+    nf = num_frames_for_length(length, w, hop)
+    out = torch.empty((rows, nf, w), dtype=torch.float32, device=x2d.device)
+    if rows == 0:
+        return out
+    slots = nf + -(-2 * w // hop) - 1  # frame slots per row, nf + kf - 1
+    if (rows * slots > 2**31 - 1 - _SLOT_TILE
+            or -(-w // _COEFF_TILE) > _MAX_GRID_Y):
+        raise ValueError(f"mdct_cuda: {rows} rows x {nf} frames of {w} is "
+                         "beyond the launch grid")
+    forward = _kernel()
+    with torch.cuda.device(x2d.device):
+        basis = windowed_basis(w, x2d.device)
+        err = forward(x2d.data_ptr(), basis.data_ptr(), out.data_ptr(), rows,
+                      length, nf, w, hop,
+                      torch.cuda.current_stream(x2d.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mdct kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out
+
+
+class MDCTFunction(torch.autograd.Function):
+    """``[rows, T] -> [rows, nf, W]`` on the card, with JAX's VJP rule."""
+
+    @staticmethod
+    def forward(ctx, x2d: torch.Tensor, window_size: int,
+                hop: int) -> torch.Tensor:
+        ctx.length, ctx.window_size, ctx.hop = x2d.shape[1], window_size, hop
+        return launch(x2d, window_size, hop)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        from meanflow_audio_codec_torch.ops.imdct_cuda import IMDCTFunction
+
+        # overlap_add(g @ WB^T) over the covered span (nf - 1) hop + 2W,
+        # which is longer than the signal whenever hop <= W: cut to it
+        dx = IMDCTFunction.apply(g.contiguous(), ctx.window_size, ctx.hop,
+                                 1.0)
+        return dx[:, :ctx.length], None, None
+
+
+def mdct_cuda(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+    """Forward MDCT, ``(..., T) -> (..., n_frames, W)``, float32;
+    differentiable on both devices."""
     if x.device.type == "cpu":
         return mdct(x, config)
     if x.device.type != "cuda":
@@ -60,23 +115,5 @@ def mdct_cuda(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     x2d = x.reshape(-1, x.shape[-1])
     if not x2d.is_contiguous():
         raise ValueError("mdct_cuda needs a contiguous signal")
-    rows, length = x2d.shape
-    nf = num_frames_for_length(length, w, hop)
-    out = torch.empty((rows, nf, w), dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return out.reshape(x.shape[:-1] + (nf, w))
-    slots = nf + -(-2 * w // hop) - 1  # frame slots per row, nf + kf - 1
-    if (rows * slots > 2**31 - 1 - _SLOT_TILE
-            or -(-w // _COEFF_TILE) > _MAX_GRID_Y):
-        raise ValueError(f"mdct_cuda: {rows} rows x {nf} frames of {w} is "
-                         "beyond the launch grid")
-    forward = _kernel()
-    with torch.cuda.device(x.device):
-        basis = windowed_basis(w, x.device)
-        err = forward(x2d.data_ptr(), basis.data_ptr(), out.data_ptr(), rows,
-                      length, nf, w, hop,
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mdct kernel launch failed with CUDA error {err}")
-    launches += 1
-    return out.reshape(x.shape[:-1] + (nf, w))
+    out = MDCTFunction.apply(x2d, w, hop)
+    return out.reshape(x.shape[:-1] + out.shape[1:])

@@ -89,3 +89,20 @@ class MeanFlowTimeSampling:
         return sample_tr(batch_size, generator, dtype, device, self.mean,
                          self.std, self.data_proportion,
                          self.full_interval_proportion)
+
+
+_TIME_SAMPLERS = {
+    "uniform": UniformTimeSampling,
+    "logit_normal": LogitNormalTimeSampling,
+    "mean_flow": MeanFlowTimeSampling,
+}
+
+
+def create_time_sampling(name: str | None, **kwargs):
+    """Build a time sampler by config name (None -> logit_normal)."""
+    if name is None:
+        name = "logit_normal"
+    if name not in _TIME_SAMPLERS:
+        raise ValueError(f"Unknown time sampling {name!r}; expected one of "
+                         f"{sorted(_TIME_SAMPLERS)}")
+    return _TIME_SAMPLERS[name](**kwargs)

@@ -5,7 +5,8 @@ Counterpart of ``meanflow_audio_codec_tpu/ops/tokenize.py``:
 the kernel wrappers, which launch the CUDA kernels on CUDA tensors and run
 the plain versions on CPU tensors), ``ReshapeTokenization`` (image patches,
 fixed-length audio patches), ``create_tokenization_strategy``,
-``compute_token_shape`` and ``PreprocessingPipeline``.
+``compute_token_shape``, ``PreprocessingPipeline`` with ``Compose``,
+``create_mdct_pipeline`` and ``create_reshape_pipeline``.
 """
 
 from __future__ import annotations
@@ -249,3 +250,23 @@ class PreprocessingPipeline:
         for step in reversed(self.steps):
             tokens = step.detokenize(tokens)
         return tokens
+
+
+class Compose(PreprocessingPipeline):
+    """A pipeline built from varargs: ``Compose(a, b, c)``."""
+
+    def __init__(self, *steps):
+        super().__init__(list(steps))
+
+
+def create_mdct_pipeline(window_size: int = 512,
+                         hop_size: int | None = None) -> PreprocessingPipeline:
+    return PreprocessingPipeline([MDCTTokenization(window_size, hop_size)])
+
+
+def create_reshape_pipeline(patch_size: int | None = None,
+                            patch_length: int | None = None,
+                            image_size: int | None = None
+                            ) -> PreprocessingPipeline:
+    return PreprocessingPipeline([ReshapeTokenization(patch_size, patch_length,
+                                                      image_size)])

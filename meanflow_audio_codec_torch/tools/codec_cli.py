@@ -112,8 +112,7 @@ def main(argv: list[str] | None = None) -> int:
     dec.add_argument("--seed", type=int, default=0,
                      help="seed of the decode's noise generator")
     dec.add_argument("--quantized", action="store_true",
-                     help="serve the decode int8 W8A8 (not ported yet: "
-                          "raises)")
+                     help="serve the decode int8 W8A8 (ops/quant.py)")
     dec.set_defaults(fn=cmd_decode)
 
     info = sub.add_parser("info", help="inspect a .macb header")

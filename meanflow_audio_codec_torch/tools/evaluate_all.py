@@ -4,8 +4,8 @@ NFE).
 
 Counterpart of ``meanflow_audio_codec_tpu/tools/evaluate_all.py``, with its
 flags, result files and CSV rows; ``--device`` (default ``cuda``) picks
-where the models run. ``--quantized`` (W8A8 int8 serving) is not ported yet
-and raises, naming the ROADMAP item.
+where the models run. ``--quantized`` serves each convnet run through the
+W8A8 int8 decoder (``ops/quant.py``) from the same checkpoint.
 
     python -m meanflow_audio_codec_torch.tools.evaluate_all \\
         --configs configs --nfe 1 10 --csv metrics.csv
@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
+from meanflow_audio_codec_torch.codec import with_quantized_decoder
 from meanflow_audio_codec_torch.configs import CodecConfig, load_config
 from meanflow_audio_codec_torch.evaluators.comprehensive_evaluator import (
     DEFAULT_NFE_SWEEP,
@@ -32,12 +33,6 @@ from meanflow_audio_codec_torch.training.logging import append_metrics_csv
 #: metric columns of the CSV rows, where an entry has them
 CSV_METRICS = ("mse", "psnr_db", "ssim", "fid_pixel", "kid_pixel",
                "spectral_distance", "si_snr_db", "stoi", "pesq")
-
-
-def refuse_quantized() -> None:
-    raise NotImplementedError(
-        "W8A8 int8 serving (--quantized) is not ported yet (ROADMAP queue 1 "
-        "item 11)")
 
 
 def find_checkpoint_for(config: CodecConfig) -> Path | None:
@@ -83,9 +78,11 @@ def evaluate_config(config_path: Path, nfe_list: list[int],
                     device: str = "cuda") -> dict | None:
     """Evaluate one config's run and write ``<workdir>/<results_name>`` (and
     the CSV rows); None, with a printed "skip", when it has no checkpoint."""
-    if quantized:
-        refuse_quantized()
     config = load_config(config_path)
+    if quantized:
+        # the same checkpoint through the int8 decoder: the parameters are
+        # unchanged, so the load is too
+        config = with_quantized_decoder(config)
     checkpoint = find_checkpoint_for(config)
     if checkpoint is None:
         print(f"skip {config_path.name}: no checkpoint under "
@@ -137,7 +134,7 @@ def main(argv: list[str] | None = None) -> int:
                              "pass never clobbers the in-family results)")
     parser.add_argument("--quantized", action="store_true",
                         help="serve checkpoints through the int8 W8A8 "
-                             "decode path (not ported yet: raises)")
+                             "decode path (convnet family only)")
     parser.add_argument("--latent-bits", type=int, default=None,
                         choices=(4, 8, 16),
                         help="decode from the scalar-quantized latent "
@@ -154,8 +151,6 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
-    if args.quantized:
-        refuse_quantized()
 
     config_paths = sorted(args.configs.glob("*.json"))
     if not config_paths:
@@ -167,6 +162,7 @@ def main(argv: list[str] | None = None) -> int:
             if evaluate_config(path, args.nfe, args.num_samples, args.csv,
                                synthetic_family=args.synthetic_family,
                                results_name=args.results_name,
+                               quantized=args.quantized,
                                latent_bits=args.latent_bits,
                                latent_step=args.latent_step,
                                timing_runs=args.timing_runs,

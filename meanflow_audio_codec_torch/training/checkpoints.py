@@ -13,7 +13,8 @@ contract, so that either package resumes from the other's files:
   * retention by ``max_checkpoints_to_keep``, keeping the final step;
   * corrupted checkpoints skipped on resume, newest to oldest;
   * ``serving_step_{N:05d}.msgpack``: the sampling parameters (EMA when
-    tracked) and the step.
+    tracked) and the step;
+  * a params-only file (``save_params_only``): the Flax param tree alone.
 
 Full checkpoints are matched by an anchored name pattern, so a
 ``serving_step_*`` file is never taken for one. The ``orbax`` format is not
@@ -43,8 +44,8 @@ MIN_CHECKPOINT_BYTES = 100
 def check_format(fmt: str | None) -> None:
     if (fmt or "msgpack") != "msgpack":
         raise NotImplementedError(
-            f"checkpoint_format {fmt!r} is not ported yet (ROADMAP queue 1 "
-            "item 13: the port writes msgpack checkpoints only)")
+            f"checkpoint_format {fmt!r} is not ported yet (ROADMAP §1, the "
+            "orbax format: the port writes msgpack checkpoints only)")
 
 
 # ============================================================================
@@ -87,6 +88,31 @@ def restore_train_state(tree: Any, state):
 def load_checkpoint(path: Path | str, state):
     """Load a msgpack checkpoint into ``state``; returns ``state``."""
     return restore_train_state(read_checkpoint(path), state)
+
+
+def save_params_only(state, path: Path | str) -> Path:
+    """A params-only checkpoint for inference: the Flax param tree's msgpack
+    bytes, as the JAX package's ``serialization.to_bytes(state.params)``
+    writes them, so either package reads the other's file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(serialization.msgpack_serialize(weights.torch_to_flax(
+        dict(zip(state.names, state.params)), state.model.architecture)))
+    return path
+
+
+def load_params_only(path: Path | str, model: torch.nn.Module
+                     ) -> dict[str, torch.Tensor]:
+    """The parameters of a params-only file by ``model``'s parameter names
+    (a ``state_dict`` for ``model.load_state_dict``); raises
+    ``ValueError`` where a name or a shape differs from ``model``'s."""
+    params = weights.flax_to_torch(read_checkpoint(path), model.architecture)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    if got != want:
+        raise ValueError(f"params in {path} do not match the model: "
+                         f"{sorted(set(got.items()) ^ set(want.items()))}")
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +271,22 @@ def validate_checkpoint_structure(path: Path | str,
     except (ValueError, TypeError, KeyError, RuntimeError,
             UnicodeDecodeError) as exc:
         return False, f"structure mismatch: {exc}"
+    return True, "ok"
+
+
+def validate_config_compatibility(checkpoint_path: Path | str,
+                                  config: Any) -> tuple[bool, str]:
+    """Compare the sidecar's stored config hash with ``config``'s."""
+    sidecar = Path(str(checkpoint_path).replace(".msgpack", ".metadata.json"))
+    if not sidecar.exists():
+        return True, "no metadata sidecar; skipping compatibility check"
+    try:
+        stored = json.loads(sidecar.read_text()).get("config_hash")
+    except (OSError, ValueError, AttributeError) as exc:
+        return True, f"unreadable sidecar ({exc}); skipping"
+    current = config_hash(config)
+    if stored and current and stored != current:
+        return False, "config hash mismatch (training config changed)"
     return True, "ok"
 
 

@@ -5,7 +5,8 @@ same on-disk contract: ``workdir/logs/train_log.jsonl`` (one flushed JSON
 object per step), ``metadata.json`` at the start of a run, ``summary.json``
 at its end, ``config_diff.json`` on resume and the loss-curve PNG under
 ``workdir/samples``. The PNG needs matplotlib; without it the plot is
-skipped with one printed line.
+skipped with one printed line. ``ProgressBar`` is tqdm, or a line printer
+without it.
 """
 
 from __future__ import annotations
@@ -234,6 +235,38 @@ def generate_config_diff(old: dict, new: dict, out_path: Path | str) -> dict:
     diff = diff_dicts(old, new)
     save_json(diff, out_path)
     return diff
+
+
+class ProgressBar:
+    """tqdm when available, else a line printer every ``print_every``
+    updates, as the JAX package's."""
+
+    def __init__(self, total: int, desc: str = "", print_every: int = 50):
+        self.total = total
+        self.print_every = print_every
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            self._bar = None
+            self._count = 0
+            self._desc = desc
+        else:
+            self._bar = tqdm(total=total, desc=desc)
+
+    def update(self, n: int = 1, **postfix) -> None:
+        if self._bar is not None:
+            if postfix:
+                self._bar.set_postfix(**postfix)
+            self._bar.update(n)
+        else:
+            self._count += n
+            if self._count % self.print_every == 0:
+                extras = " ".join(f"{k}={v}" for k, v in postfix.items())
+                print(f"{self._desc} {self._count}/{self.total} {extras}")
+
+    def close(self) -> None:
+        if self._bar is not None:
+            self._bar.close()
 
 
 def append_metrics_csv(path: Path | str, row: dict) -> None:

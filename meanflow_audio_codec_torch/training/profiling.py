@@ -12,12 +12,16 @@ same record keys (``step_time``, ``avg_step_time``, ``achieved_tflops``,
     ``torch.utils.flop_counter`` (matrix products and convolutions:
     forward, forward-mode tangent and backward);
   * ``mfu`` divides by the card's dense bf16 peak, looked up by its name
-    (:data:`PEAK_BF16_FLOPS`); a card that is not in the table gets no MFU.
+    (:data:`PEAK_BF16_FLOPS`); a card that is not in the table gets no MFU;
+  * ``TraceCapture(logdir)`` records ``torch.profiler``'s host and card
+    timeline and writes it as a Chrome trace under ``logdir`` (the JAX
+    package's xprof trace).
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Any
 
 import torch
@@ -151,3 +155,29 @@ class ProfilingTrainer:
             summary.update(self._rates(
                 sum(self.step_times) / len(self.step_times)))
         return summary
+
+
+class TraceCapture:
+    """Context manager around ``torch.profiler``: on exit the timeline (the
+    host's ops and, with a card, its kernels) is written to
+    ``logdir/trace_<ms>.json`` (``path``), viewable in Perfetto or
+    ``chrome://tracing``."""
+
+    def __init__(self, logdir: Path | str):
+        self.logdir = Path(logdir)
+        self.path: Path | None = None
+        self._profiler = None
+
+    def __enter__(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._profiler.__exit__(*exc)
+        self.logdir.mkdir(parents=True, exist_ok=True)
+        self.path = self.logdir / f"trace_{int(time.time() * 1000)}.json"
+        self._profiler.export_chrome_trace(str(self.path))

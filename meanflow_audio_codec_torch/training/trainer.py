@@ -118,8 +118,8 @@ def _check_ported(config: CodecConfig) -> None:
     tpu = config.source.get("tpu") or {}
     if tpu.get("mesh_data", -1) > 1 or tpu.get("mesh_model", 1) > 1:
         raise NotImplementedError(
-            "more than one device is not ported yet (ROADMAP queue 1 item "
-            f"12, parallel/): tpu.mesh_data {tpu.get('mesh_data')}, "
+            "more than one device is not ported yet (ROADMAP §1, "
+            f"parallel/): tpu.mesh_data {tpu.get('mesh_data')}, "
             f"tpu.mesh_model {tpu.get('mesh_model')}")
     create_loss_strategy(config)
     if config.architecture_options.get("quantized"):

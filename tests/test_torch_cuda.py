@@ -959,3 +959,134 @@ def test_evaluator_launches_the_transform_kernels(device, eval_run):
     assert (mdct_cuda_mod.launches, imdct_cuda_mod.launches) == (1, 2)
     assert results["bitstream_kbps_measured"] > 0
     assert set(results["nfe_sweep"]) == {"1", "2"}
+
+
+# ---------------------------------------------------------------------------
+# gradients through the transform kernels; W8A8 int8 serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("transform", ["mdct", "imdct"])
+@pytest.mark.parametrize("rows,length,window,hop", [
+    (3, 10000, 256, 128), (2, 5000, 576, 100), (5, 300, 512, 256),
+    (8, 32768, 512, 256)])
+def test_transform_gradients_on_the_card_match_plain_autograd(
+        device, transform, rows, length, window, hop):
+    """x.grad through the kernel (its backward launches the other kernel)
+    against the plain version's autograd on the card, at the transforms'
+    rtol 1e-4 / atol 1e-3; not zero."""
+    gen = torch.Generator(device).manual_seed(rows)
+    cfg = MDCTConfig(window, hop)
+    nf = num_frames_for_length(length, window, hop)
+    x = (torch.randn(rows, length, device=device, generator=gen)
+         if transform == "mdct" else
+         torch.randn(rows, nf, window, device=device, generator=gen))
+    kernel, plain = ((mdct_cuda, mdct) if transform == "mdct"
+                     else (imdct_cuda, imdct))
+    other = imdct_cuda_mod if transform == "mdct" else mdct_cuda_mod
+    grads = []
+    for fn in (kernel, plain):
+        a = x.clone().requires_grad_(True)
+        y = fn(a, cfg)
+        cot = torch.randn(y.shape, device=device,
+                          generator=torch.Generator(device).manual_seed(7))
+        before = other.launches
+        (y * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(a.grad)
+        if fn is kernel:
+            assert other.launches == before + 1
+    assert grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=RTOL, atol=ATOL)
+
+
+def test_mdct_layers_on_the_card_carry_gradients(device):
+    from meanflow_audio_codec_torch.ops.mdct_layers import IMDCTLayer, MDCTLayer
+
+    stereo = torch.randn(2, 32768, 2, device=device, requires_grad=True)
+    before = (mdct_cuda_mod.launches, imdct_cuda_mod.launches)
+    IMDCTLayer(512, 256)(MDCTLayer(512, 256)(stereo)).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (mdct_cuda_mod.launches - before[0],
+            imdct_cuda_mod.launches - before[1]) == (2, 2)
+    assert torch.isfinite(stereo.grad).all() and stereo.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("rows,k,n", [(1, 1024, 512), (5, 2304, 256),
+                                      (16, 32, 2048), (17, 256, 32),
+                                      (1721, 2304, 256), (3, 20, 7)])
+def test_int_mm_on_the_card_pads_and_is_exact(device, rows, k, n):
+    """``torch._int_mm`` through the padding (rows to 17, K and N to
+    multiples of 8) against the plain exact product on the CPU, bit for
+    bit; the count moves for the card's product."""
+    from meanflow_audio_codec_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(rows + k + n)
+    a = torch.randint(-127, 128, (rows, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    before = quant.int8_products
+    got = quant._int_product(a.to(device), w.to(device))
+    assert quant.int8_products == before + 1
+    assert torch.equal(got.cpu(), quant.int_product_plain(a, w))
+
+
+@pytest.mark.parametrize("op", ["linear", "conv3x3", "conv3x3-stride2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_ops_on_the_card_match_the_cpu(device, op, dtype):
+    """The card's int8 ops against the plain path on the CPU on the same
+    inputs: the same codes and int32 sums, so the outputs agree to the last
+    bit of the dequantize (rtol 1e-6 in float32, one bf16 rounding)."""
+    from meanflow_audio_codec_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(3)
+    if op == "linear":
+        x = torch.randn(1721, 2304, generator=gen).to(dtype)
+        w = (0.05 * torch.randn(256, 2304, generator=gen)).to(dtype)
+        b = torch.randn(256, generator=gen).to(dtype)
+        run = quant.int8_linear
+    else:
+        stride = 2 if op.endswith("stride2") else 1
+        x = torch.randn(64, 8, 8, 256, generator=gen).to(dtype)
+        w = (0.05 * torch.randn(256, 256, 3, 3, generator=gen)).to(dtype)
+        b = torch.randn(256, generator=gen).to(dtype)
+        pad = ((1, 1), (1, 1)) if stride == 1 else ((0, 1), (0, 1))
+
+        def run(x, w, b):
+            return quant.int8_conv2d(x, w, b, stride=stride, padding=pad)
+    before = quant.int8_products
+    got = run(x.to(device), w.to(device), b.to(device))
+    torch.cuda.synchronize()
+    assert quant.int8_products == before + 1
+    want = run(x, w, b)
+    assert got.dtype == want.dtype == dtype
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=2 ** -7)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+def test_quantized_decoder_runs_72_int8_products_on_the_card(device):
+    """Frontier-v2's decoder (8 stages) served int8 on the card: 72 int8
+    products per call (4 Dense + 5 convs a stage), within 0.05 of the bf16
+    decode of the same weights, at a streaming push's few rows too."""
+    from meanflow_audio_codec_torch.models.conv_flow import (
+        ConditionalConvFlow,
+    )
+    from meanflow_audio_codec_torch.ops import quant
+
+    kw = dict(channels=256, bottleneck_dim=512, spatial=8, lift_channels=32,
+              compute_dtype=torch.bfloat16)
+    bf16 = ConditionalConvFlow(1024, 512, 8, 256, **kw)
+    int8 = ConditionalConvFlow(1024, 512, 8, 256, quantized=True, **kw)
+    int8.load_state_dict(bf16.state_dict(), strict=True)
+    bf16, int8 = bf16.to(device), int8.to(device)
+    for rows in (1721, 3):
+        gen = torch.Generator(device).manual_seed(rows)
+        x = torch.randn(rows, 1024, device=device, generator=gen)
+        time = torch.ones(rows, 2, device=device)
+        with torch.no_grad():
+            latents = bf16.encode(x)
+            want = bf16(x, time, latents).float()
+            quant.int8_products = 0
+            got = int8(x, time, latents).float()
+            torch.cuda.synchronize()
+        assert quant.int8_products == 72
+        assert float((got - want).norm() / want.norm()) < 0.05

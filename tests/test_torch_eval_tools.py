@@ -8,7 +8,8 @@ synthetic-MNIST MLP flow. Compared:
     CSV's columns and each row's identity columns (config, method,
     architecture, dataset, tokenization, nfe, param_count) equal JAX's, the
     metrics finite (the start noise is each framework's own draw), both
-    print the "skip"; ``--quantized`` raises naming the ROADMAP item;
+    print the "skip"; ``--quantized`` evaluates the convnet run through
+    the int8 decoder and fails the MLP run in both packages;
   * ``eval_suite``: the same passes with the same file names and arguments;
   * ``export_serving``: the port's file read by JAX's
     ``load_serving_checkpoint`` and JAX's by the port's give the same
@@ -152,13 +153,36 @@ def test_evaluate_all_writes_jax_csv_rows_and_skips(runs, tmp_path, capsys):
         (runs["mnist"] / "jax.json").read_text()))
 
 
-def test_evaluate_all_refuses_quantized_naming_the_roadmap(runs, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        evaluate_all.main(["--configs", str(tmp_path), "--quantized",
-                           "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        evaluate_all.evaluate_config(runs["audio"] / "config.json", [1], 2,
-                                     None, quantized=True, device="cpu")
+def test_evaluate_all_refuses_quantized_naming_the_roadmap(runs, tmp_path,
+                                                          capsys):
+    """``--quantized`` (refused, naming its ROADMAP item, until W8A8 was
+    ported): the convnet run is evaluated through the int8 decoder; the MLP
+    run fails in both packages, whose MLP factory takes no ``quantized``."""
+    configs_dir = tmp_path / "configs"
+    configs_dir.mkdir()
+    for name in ("audio", "mnist"):
+        shutil.copy(runs[name] / "config.json", configs_dir / f"{name}.json")
+    argv = ["--configs", str(configs_dir), "--quantized", "--nfe", "1",
+            "--num-samples", "2", "--timing-runs", "0"]
+    assert evaluate_all.main(argv + ["--csv", str(tmp_path / "port.csv"),
+                                     "--results-name", "q.json",
+                                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "FAILED mnist.json" in out and "Evaluated 1/2 configs" in out
+    (row,) = _rows(tmp_path / "port.csv")
+    assert row["config"] == "audio" and np.isfinite(float(row["si_snr_db"]))
+    # JAX's MLP factory refuses it the same way
+    (configs_dir / "audio.json").unlink()
+    assert j_evaluate_all.main(argv + ["--csv", str(tmp_path / "jax.csv")]) \
+        == 0
+    assert "FAILED mnist.json" in capsys.readouterr().out
+    quantized = evaluate_all.evaluate_config(
+        runs["audio"] / "config.json", [1], 2, None, results_name="q.json",
+        quantized=True, timing_runs=0, device="cpu")
+    plain = evaluate_all.evaluate_config(
+        runs["audio"] / "config.json", [1], 2, None, results_name="p.json",
+        timing_runs=0, device="cpu")
+    assert quantized["nfe_sweep"]["1"] != plain["nfe_sweep"]["1"]
 
 
 def test_load_real_data_draws_as_jax(runs):

@@ -288,9 +288,15 @@ def test_factory_rejects_unported_families_and_options():
     object.__setattr__(unknown, "architecture", "transformer")
     with pytest.raises(ValueError, match="Unknown architecture"):
         create_flow_model(unknown)
-    with pytest.raises(NotImplementedError):
+    # quantized is ported (W8A8 serving): it builds, with the plain model's
+    # parameters; a family without the option refuses it, as in JAX
+    quantized = create_flow_model(config_from_dict({"model": dict(
+        base, architecture="convnet",
+        architecture_options=dict(SMALL, quantized=True))}))
+    assert quantized.stages[0].out.quantized
+    with pytest.raises(TypeError):
         create_flow_model(config_from_dict({"model": dict(
-            base, architecture="convnet",
+            base, architecture="mlp",
             architecture_options={"quantized": True})}))
     # fused_stage is ported: it builds, with the plain model's parameters
     fused = create_flow_model(config_from_dict({"model": dict(

@@ -231,9 +231,27 @@ def test_a_workdir_without_checkpoints_raises(workdirs, tmp_path):
 
 
 def test_quantized_serving_names_its_roadmap_item(workdirs):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AudioCodec.from_workdir(workdirs["port"], device="cpu",
-                                quantized=True)
+    """W8A8 int8 serving (refused, naming its ROADMAP item, until it was
+    ported): the JAX-written run served quantized by both packages from the
+    same checkpoint gives the same round trip at the codec tolerance, within
+    0.05 of the unquantized one; config.json is left as it was."""
+    workdir = workdirs["jax"]
+    on_disk = (workdir / "config.json").read_text()
+    codec = AudioCodec.from_workdir(workdir, device="cpu", quantized=True)
+    assert codec.model.stages[0].block.conv.quantized
+    assert not codec.model.encoder.head.quantized
+    audio = _audio()
+    nf = (FRAME - WINDOW) // HOP + 1
+    key, noise = _noise(2 * nf)
+    ref = np.asarray(JaxAudioCodec.from_workdir(
+        workdir, quantized=True).roundtrip(audio, key=key))
+    got = codec.roundtrip(audio, noise=noise).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    plain = AudioCodec.from_workdir(workdir, device="cpu").roundtrip(
+        audio, noise=noise).numpy()
+    rel = np.linalg.norm(got - plain) / np.linalg.norm(plain)
+    assert 1e-4 < rel < 0.05
+    assert (workdir / "config.json").read_text() == on_disk
 
 
 def test_a_qat_run_serves_in_both_packages(workdirs, tmp_path):
@@ -441,7 +459,14 @@ def test_cli_info_and_refusals(workdirs, tmp_path, capsys):
         torch.ones(1, 2, 8))))
     assert "MACB v1, 8-bit raw codes (symmetric), batch=1 frames=2 " \
            "latent_dim=8" in _info(codec_cli.main, good, capsys)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        codec_cli.main(["decode", str(good), "--workdir",
-                        str(workdirs["port"]), "--quantized", "--device",
-                        "cpu"])
+    # decode --quantized serves the int8 decoder, seeded as without it
+    out = tmp_path / "q.wav"
+    assert codec_cli.main(["decode", str(good), "--workdir",
+                           str(workdirs["port"]), "--quantized", "--device",
+                           "cpu", "-o", str(out), "--seed", "2"]) == 0
+    want = AudioCodec.from_workdir(
+        workdirs["port"], device="cpu", quantized=True).decode_bytes(
+        good.read_bytes(), generator=torch.Generator().manual_seed(2))[0]
+    pcm = (np.clip(want.numpy(), -1, 1) * 32767).astype(np.int16) / 32768.0
+    np.testing.assert_array_equal(port_audio.load_audio_file(out).T,
+                                  pcm.astype(np.float32))
