@@ -155,11 +155,19 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor,
     s_act = per_tensor_scale(x)
     s_w = per_channel_scale(weight)
     codes = F.pad(quantize(x, s_act), (0, 0, left, right, top, bottom))
+    rows, (b, ho, wo) = unfold_codes(codes, kh, kw, stride)
+    acc = _int_product(rows, quantize(weight, s_w[:, None, None, None]
+                                      ).reshape(out_ch, -1))
+    return _dequantize(acc, s_act, s_w, x.dtype, bias).reshape(b, ho, wo,
+                                                               out_ch)
+
+
+def unfold_codes(codes: torch.Tensor, kh: int, kw: int, stride: int = 1
+                 ) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """im2col of padded channels-last codes ``[B, H, W, C]``: the rows
+    ``[B*H'*W', C*kh*kw]`` in the order of an OIHW weight's
+    ``reshape(O, -1)``, and ``(B, H', W')``."""
     # [B, H', W', C, kh, kw]: a strided view, copied once into the rows
     patches = codes.unfold(1, kh, stride).unfold(2, kw, stride)
     b, ho, wo = patches.shape[:3]
-    acc = _int_product(patches.reshape(b * ho * wo, -1),
-                       quantize(weight, s_w[:, None, None, None]).reshape(
-                           out_ch, -1))
-    return _dequantize(acc, s_act, s_w, x.dtype, bias).reshape(b, ho, wo,
-                                                               out_ch)
+    return patches.reshape(b * ho * wo, -1), (b, ho, wo)

@@ -25,6 +25,10 @@ transforms' rtol 1e-4 / atol 1e-3. ``ComprehensiveEvaluator`` on the card
 evaluates a float32 frontier-geometry run (W 512, a small ConvNeXt) as on
 the CPU (decoded audio within relative L2 1e-5, the same start noise) and
 launches the MDCT kernel once per evaluation and the IMDCT once per NFE.
+The timing tools: a codec-geometry row launches one MDCT and one IMDCT a
+call (and 72 int8 products a quantized call), a fused conv_mfu row the
+three stage kernels (the unfused one none), and the profiler records an
+int8 GEMM kernel for each of a quantized decoder call's 72 products.
 """
 
 import pytest
@@ -1090,3 +1094,96 @@ def test_quantized_decoder_runs_72_int8_products_on_the_card(device):
             torch.cuda.synchronize()
         assert quant.int8_products == 72
         assert float((got - want).norm() / want.norm()) < 0.05
+
+
+def _zero_counts():
+    from meanflow_audio_codec_torch.ops import quant
+
+    mdct_cuda_mod.launches = imdct_cuda_mod.launches = 0
+    quant.int8_products = 0
+    for name in stage_cuda.launches:
+        stage_cuda.launches[name] = 0
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_codec_geometry_row_launches_one_transform_each_a_call(device,
+                                                               quantized):
+    """benchmark_codec_geometry at frontier-v2 width (1 clip of 0.5 s):
+    each codec call launches one MDCT and one IMDCT, and the int8 decoder
+    72 int8 products; the row's times are finite and positive."""
+    import math
+
+    from meanflow_audio_codec_torch.ops import quant
+    from meanflow_audio_codec_torch.tools.benchmarks import (
+        benchmark_codec_geometry as geometry,
+    )
+
+    _zero_counts()
+    row = geometry.bench_geometry(
+        "ch256_s8_lift32", batch_clips=1, clip_seconds=0.5, iters=2,
+        groups=1, quantized=quantized, device=device,
+        **geometry.CONFIGS["ch256_s8_lift32"])
+    torch.cuda.synchronize()
+    calls = 1 + 2  # warm-up, timed
+    assert mdct_cuda_mod.launches == imdct_cuda_mod.launches == calls
+    assert quant.int8_products == (72 * calls if quantized else 0)
+    assert row["params_m"] == 36.3
+    for key in ("wall_ms", "rtf"):
+        assert math.isfinite(row[key]) and row[key] > 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_conv_mfu_row_launches_the_stage_kernels_only_when_fused(device,
+                                                                 fused):
+    """benchmark_conv_mfu's ch512 bn1024 row at batch 64, one step: the
+    ``_fused`` row launches all three stage kernels, the other none; the
+    MFU is against the card's bf16 peak."""
+    from meanflow_audio_codec_torch.tools.benchmarks import (
+        benchmark_conv_mfu as conv_mfu,
+    )
+
+    name = "ch512_s8_lift64_bn1024_b2048_dots" + ("_fused" if fused else "")
+    kwargs = dict(conv_mfu.CONFIGS[name])
+    kwargs.pop("batch"), kwargs.pop("scan_k")
+    _zero_counts()
+    row = conv_mfu.bench_config(name, batch=64, scan_k=1, iters=1,
+                                device=device, **kwargs)
+    torch.cuda.synchronize()
+    counts = [stage_cuda.launches[k] for k in ("ln_film_cuda", "ln_norm_cuda",
+                                               "gelu_grn_cuda")]
+    assert min(counts) > 0 if fused else max(counts) == 0
+    assert row["params_m"] == 118.0 and row["step_gflop"] > 0
+    assert 0 < row["mfu"] < 1 and row["steps_per_sec"] > 0
+
+
+def test_profiler_counts_the_int8_gemm_kernels_of_one_decoder_call(device):
+    """probe_hlo's kernel report for one W8A8 decoder call at frontier-v2
+    width: 72 ``aten::_int_mm`` calls, each launching an int8 GEMM kernel
+    the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from meanflow_audio_codec_torch.models.conv_flow import (
+        ConditionalConvFlow,
+    )
+    from meanflow_audio_codec_torch.tools.probes.probe_hlo import (
+        kernel_report,
+    )
+
+    model = ConditionalConvFlow(1024, 512, 8, 256, channels=256,
+                                bottleneck_dim=512, spatial=8,
+                                lift_channels=32, quantized=True,
+                                compute_dtype=torch.bfloat16).to(device)
+    gen = torch.Generator(device).manual_seed(0)
+    x = torch.randn(1721, 1024, device=device, generator=gen)
+    time = torch.ones(1721, 2, device=device)
+    with torch.no_grad():
+        latents = model.encode(x)
+        model(x, time, latents)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x, time, latents)
+            torch.cuda.synchronize()
+    report = kernel_report(prof)
+    assert report["int_mm_calls"] == 72
+    assert report["int8_gemm_kernels"] >= 72, report["int8_gemm_kernel_names"]

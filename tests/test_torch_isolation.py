@@ -62,6 +62,18 @@ def test_the_serving_modules_are_checked():
             "ops/latent_quant.py", "ops/entropy.py"} <= names
 
 
+def test_the_timing_tools_are_checked():
+    """Every timing tool of the JAX package (its 12 benchmark scripts and 5
+    probes) has a counterpart of the same name among the files the tests
+    above walk."""
+    ref = REPO / "meanflow_audio_codec_tpu" / "tools"
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    tools = {str(p.relative_to(ref.parent)) for sub in ("benchmarks", "probes")
+             for p in (ref / sub).glob("*.py")}
+    assert len(tools - {"tools/benchmarks/__init__.py"}) == 17
+    assert tools <= names
+
+
 _CLI_PROBE = """
 import runpy, sys
 sys.argv = ["codec_cli", "info", {path!r}]
