@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --transforms-only   # phases 1-3 for MDCT/IMDCT
     python3 chip_smoke.py --jvp-tape   # the build, then the tape probe
+    python3 chip_smoke.py --parallel-only   # the build, then phase 15
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -104,9 +105,9 @@ and prints no result line):
   9b. the simple trainer (``training/simple_trainer``): ``train_epoch`` at
      frontier-v2 width on the card, 4 flow-matching and 4 iMF steps on
      seeded token batches, finite losses;
-  9a. the corpus: ``tools/make_corpus`` writes 16 FLAC and 4 WAV clips of
+  9a. the corpus: ``tools/make_corpus`` writes 8 FLAC and 4 WAV clips of
      4.46 s (mixed family) into a temporary directory; the frames/s of
-     ``build_audio_pipeline`` over it for 20 batches of 16 x 32768 x 2,
+     ``build_audio_pipeline`` over it for 10 batches of 16 x 32768 x 2,
      native with 2 threads (as the trainer builds it, ``files_skipped``
      0) and the Python stages; then ``python -m
      meanflow_audio_codec_torch.train --config configs/corpus_rehearsal.json
@@ -117,8 +118,8 @@ and prints no result line):
      checks of the workdir and the parameter count; chunk ms per step,
      steps/s, frames/s, peak memory, FLOPs and MFU beside the loader's
      rate, and the seconds and bytes of every checkpoint write; the exact
-     stream (``--device-pool-clips 0``, the default for a corpus) for 32
-     steps, its chunk ms per step beside the pooled run's and the host
+     stream (``--device-pool-clips 0``, the default for a corpus) for 16
+     steps in chunks of 8, its chunk ms per step beside the pooled run's and the host
      synchronisations inside its second chunk (0 required); the run served
      (``from_workdir``, the codec CLI on a FLAC clip of the corpus) and a
      10 s clip's ``encode_bytes`` / ``decode_bytes`` as v1 8-bit;
@@ -155,14 +156,17 @@ and prints no result line):
      step without remat (step ms, peak memory),
      and their float32 gradients at one clip within relative L2 1e-5;
   12a. the other families at full width, each through ``python -m
-     meanflow_audio_codec_torch.train`` (``main``; chunks of 8, 16 steps
-     then ``--resume`` to 32, sampling at the end of each run): the
+     meanflow_audio_codec_torch.train`` (``main``; chunks of 4, 8 steps
+     then ``--resume`` to 16, sampling at the end of each run; the mixer
+     codec and the ablation model one run of 8, the mixer's checkpoints
+     taking ~15 s each): the
      MLP-Mixer codec (method=improved_mean_flow--architecture=mlp_mixer--
      dataset=audio--tokenization=mdct.json, 321,236,192 parameters, its
      128 clips cut to 3 = 765 flow rows, the most under 60 GiB: one bare
      step holds 62.7 GB at 3 clips, 82.0 GB at 4 (``--jvp-tape``); device
-     pool 64 clips), the MLP
-     codec (the mlp config at its 128 clips, 32640 rows, pool 256 clips)
+     pool 16 clips), the MLP
+     codec (the mlp config, its 128 clips cut to 32, 8160 rows, pool 64
+     clips)
      and the ablation sweep's largest model (ablation--size=large.json:
      synthetic mnist, reshape, mlp, mean flow, 16 blocks, latent 1024,
      batch 128); the workdir's log, checkpoints and parameter count
@@ -193,9 +197,11 @@ and prints no result line):
      ``ch512_s8_lift64_bn1024_b2048_dots`` and its ``_fused`` row,
      ``benchmark_streaming``'s ``light_ch256`` in 0.1 s chunks, the
      sampler, objectives and MF-vs-iMF scripts at their defaults (the
-     sampler's NFE cut to 1 and 10, the MF-vs-iMF steps from 400 to 50),
-     the five probes at their shapes (the A/B cut to 1 round, the repeats
-     to 2) and, last, the five data scripts over a 20-file synthetic WAV
+     sampler's NFE cut to 1 and 10, the MF-vs-iMF steps from 400 to 50,
+     the codec geometry's timed groups from 3 to 1), the five probes at
+     their shapes (the A/B cut to 1 round of 2 calls a side, the int8
+     chain's repeats to 2, the int8 conv's and the stage probe's to 1) and,
+     last, the five data scripts over a 20-file synthetic WAV
      corpus; fails on an error row,
      a return code other than 0, a time or rate that is not finite and
      positive, a parameter count other than the
@@ -208,17 +214,34 @@ and prints no result line):
      the card against the CPU at one clip (relative L2 <= 1e-5), then
      profiles of one round trip and one bf16 train step with
      ``fused_stage`` on and off (device time by kernel, busy share);
+  15. (run after 12d, before the lines of 14) data-parallel training, in
+     three parts: ``python -m
+     meanflow_audio_codec_torch.train --config configs/frontier_v2.json``
+     through ``main`` inside a one-rank NCCL group (the sharded path at
+     world size 1: its sharding and mesh-pool lines, 32 steps in chunks of
+     16 with the pool cut to 64 clips, the second chunk's time per step,
+     the checkpoint reloaded with its EMA equal to the serving file's);
+     two ranks on the one card over gloo (``torch.multiprocessing``, CUDA
+     tensors), one float32 step at frontier-v2 width (warmup off, so the
+     parameters move) on 8 clips each against the one-process step on
+     all 16 (loss, parameters and first moments within relative L2
+     1e-5), the MDCT launched on each rank; and, started first and beside
+     both, ``tools/supervise`` (its torch probe of the card) over a small
+     trainer child whose first launch stalls once, restarted with
+     ``--resume`` to its end; the parts' wall seconds;
   14. a ``{"kernels": [...]}`` line (launches per path: the transform
      layers' gradient, round trip, train, trainer, codec bytes, codec CLI,
      quantized serving, streaming, QAT trainer, eval_suite,
      the 64-clip evaluator, the exports, the corpus trainer, its exact
      stream and serving, each objective, each remat setting, the three
      family trainers, the two codecs' serving, the matrix, evaluate_all,
-     the flag-driven trainer, each timing tool that launches a kernel),
+     the flag-driven trainer, each timing tool that launches a kernel,
+     the one-rank trainer and the two ranks' step),
      then the result line
      ``{"ok": true, "device": {...}}`` last.
 
-With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
+With ``--parallel-only`` it builds, then runs phase 15 alone and prints
+its launches but no result line. With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
 copied into another checkout of the port, it times that checkout's kernels
 at the same shapes. With ``--jvp-tape`` it builds, then times bare bf16 iMF
@@ -240,6 +263,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -296,31 +320,36 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "frontier_v2.json"
 #: the other families' full-width paths: label -> (config, parameters as the
 #: JAX package counts them, batch in clips (None: the config's), device
-#: pool clips (None: the config's default))
+#: pool clips (None: the config's default), whether a ``--resume`` run
+#: follows the first)
 CONFIGS = REPO / "configs"
 FAMILY_RUNS = {
     # path A: the MLP-Mixer codec, its 128 clips cut to 3 (765 flow rows):
     # one bare bf16 step holds 62.7 GB (58.4 GiB) at 3 clips and 82.0 GB at
-    # 4 on an H100 80GB HBM3 (--jvp-tape)
+    # 4 on an H100 80GB HBM3 (--jvp-tape); one run, no resume: each of its
+    # 3.85 GB checkpoints takes ~15 s to write
     "mixer_codec": (CONFIGS / ("method=improved_mean_flow--architecture="
                               "mlp_mixer--dataset=audio--tokenization="
-                              "mdct.json"), 321_236_192, 3, 64),
-    # path B: the MLP codec at its full batch (128 clips, 32640 flow rows)
+                              "mdct.json"), 321_236_192, 3, 16, False),
+    # path B: the MLP codec, its 128 clips cut to 32 (8160 flow rows): the
+    # host synthesises a batch of 128 clips in ~13 s, and the pool holds two
     "mlp_codec": (CONFIGS / ("method=improved_mean_flow--architecture=mlp--"
                             "dataset=audio--tokenization=mdct.json"),
-                  28_262_272, None, 256),
-    # path C: the ablation sweep's largest model (mnist, reshape, mlp)
+                  28_262_272, 32, 64, True),
+    # path C: the ablation sweep's largest model (mnist, reshape, mlp); one
+    # run, no resume
     "ablation_large": (CONFIGS / "ablations" / "ablation--size=large.json",
-                       86_005_000, None, None),
+                       86_005_000, None, None, False),
 }
-FAMILY_CHUNK = 8  # steps per call: two chunks in each run of 16
+FAMILY_STEPS = 8  # steps per run: the first run, then --resume to twice
+FAMILY_CHUNK = 4  # steps per call: two chunks in each run
 JVP_PROBE_CLIPS = (1, 2, 3, 4)  # path A's batches in the tape probe
 QAT_CONFIG = REPO / "configs" / "frontier_v2_qat.json"
 CORPUS_CONFIG = REPO / "configs" / "corpus_rehearsal.json"
 #: the corpus phase's corpus (make_corpus, mixed family), the loader's timed
 #: batches and the corpus config's parameter count (the JAX package's)
-CORPUS_FLAC, CORPUS_WAV, CORPUS_SECONDS = 16, 4, 4.46
-LOADER_BATCHES = 20
+CORPUS_FLAC, CORPUS_WAV, CORPUS_SECONDS = 8, 4, 4.46
+LOADER_BATCHES = 10
 CORPUS_PARAMS = 114_472_384
 SAMPLE_RATE = 44100
 #: the evaluation phase: eval_suite's held-out clips and NFEs, and the JAX
@@ -1970,8 +1999,8 @@ def corpus_exact_stream_path(device: torch.device, card: str, corpus: Path,
                              workdir: Path, pooled_ms: float) -> dict:
     """The same config without the device pool (``--device-pool-clips 0``,
     the JAX package's default for a corpus: host batches go to the card
-    every chunk): 32 steps, the host synchronisations inside the second
-    chunk counted. Returns the launch counts."""
+    every chunk): 16 steps in chunks of 8, the host synchronisations inside
+    the second chunk counted. Returns the launch counts."""
     from meanflow_audio_codec_torch.training import trainer as trainer_mod
 
     real = trainer_mod.make_multi_step
@@ -1984,15 +2013,15 @@ def corpus_exact_stream_path(device: torch.device, card: str, corpus: Path,
             calls[0] += 1
             if calls[0] != 2:
                 return chunk(*a, **kw)
-            out, count = count_syncs("one 16-step chunk of the exact stream",
+            out, count = count_syncs("one 8-step chunk of the exact stream",
                                      lambda: chunk(*a, **kw))
             syncs.append(count)
             return out
         return run
 
     args = ["--config", str(CORPUS_CONFIG), "--data-dir", str(corpus),
-            "--device-pool-clips", "0", "--n-steps", "32", "--workdir",
-            str(workdir)]
+            "--device-pool-clips", "0", "--n-steps", "16",
+            "--steps-per-call", "8", "--workdir", str(workdir)]
     trainer_mod.make_multi_step = counted
     zero_launches()
     try:
@@ -2004,7 +2033,7 @@ def corpus_exact_stream_path(device: torch.device, card: str, corpus: Path,
     launches = read_launches()
     steps = [r for r in read_log(workdir / "logs" / "train_log.jsonl")
              if "event" not in r]
-    if [r["step"] for r in steps] != list(range(32)) or not all(
+    if [r["step"] for r in steps] != list(range(16)) or not all(
             math.isfinite(r["loss"]) and r["update_ok"] is True
             for r in steps):
         raise AssertionError("exact stream: steps missing, non-finite or "
@@ -2012,15 +2041,16 @@ def corpus_exact_stream_path(device: torch.device, card: str, corpus: Path,
     summary = json.loads((workdir / "summary.json").read_text())
     if "pool_skipped_refreshes" in summary:
         raise AssertionError("the exact stream ran through a device pool")
-    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 16)]
-    print(f"[{card}] corpus exact stream (no device pool): chunk time per "
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in (0, 8)]
+    print(f"[{card}] corpus exact stream (no device pool, chunks of 8): "
+          f"chunk time per "
           f"step {chunk_ms[0]:.3f} / {chunk_ms[1]:.3f} ms (chunks 1-2; the "
           f"first includes the start) against {pooled_ms:.3f} ms with the "
           f"pool ({chunk_ms[1] / pooled_ms:.4f}x)", flush=True)
     _print_writes(writes, "exact stream")
-    print(f"corpus exact stream path launches (32 steps, 1 sampling): "
+    print(f"corpus exact stream path launches (16 steps, 1 sampling): "
           f"{launches}", flush=True)
-    if launches["mdct_cuda"] < 32 or launches["imdct_cuda"] < 1:
+    if launches["mdct_cuda"] < 16 or launches["imdct_cuda"] < 1:
         raise AssertionError("the exact stream did not run the MDCT on "
                              "every step and the IMDCT in its sampling")
     if syncs != [0]:
@@ -2152,12 +2182,15 @@ def recorded_samples():
 def family_trainer_path(device: torch.device, card: str, label: str,
                         workdir: Path) -> tuple[dict, float]:
     """One of ``FAMILY_RUNS`` through the train CLI's ``main`` at the
-    config's widths: 16 steps in chunks of 8, then ``--resume`` to 32,
+    config's widths: ``FAMILY_STEPS`` steps in chunks of ``FAMILY_CHUNK``,
+    then (where ``FAMILY_RUNS`` says so) ``--resume`` to twice that,
     sampling at the end of each run. Checks the log, the checkpoints, the
     parameter count and the samples; prints chunk ms per step, frames/s,
     peak memory, FLOPs and MFU. Returns the launch counts and the chunk ms
     per step."""
-    path, n_params, clips, pool = FAMILY_RUNS[label]
+    path, n_params, clips, pool, resume = FAMILY_RUNS[label]
+    runs = 2 if resume else 1
+    total = runs * FAMILY_STEPS
     config = load_config(path)
     batch = clips or config.batch_size
     args = ["--config", str(path), "--steps-per-call", str(FAMILY_CHUNK),
@@ -2171,7 +2204,8 @@ def family_trainer_path(device: torch.device, card: str, label: str,
     zero_launches()
     t0 = time.perf_counter()
     with recorded_samples() as samples, timed_checkpoint_writes() as writes:
-        for extra in (["--n-steps", "16"], ["--resume", "--n-steps", "32"]):
+        for extra in (["--n-steps", str(FAMILY_STEPS)],
+                      ["--resume", "--n-steps", str(total)])[:runs]:
             if train_cli.main(args + extra) != 0:
                 raise AssertionError(f"{label}: train main {extra} failed")
     wall = time.perf_counter() - t0
@@ -2180,7 +2214,7 @@ def family_trainer_path(device: torch.device, card: str, label: str,
     records = read_log(workdir / "logs" / "train_log.jsonl")
     starts = [r for r in records if r.get("event") == "start"]
     steps = [r for r in records if "event" not in r]
-    if [r["step"] for r in steps] != list(range(32)) or len(starts) != 2:
+    if [r["step"] for r in steps] != list(range(total)) or len(starts) != runs:
         raise AssertionError(f"{label}: steps {[r['step'] for r in steps]}")
     if {r["param_count"] for r in starts} != {n_params}:
         raise AssertionError(f"{label}: {starts[0]['param_count']} "
@@ -2189,41 +2223,42 @@ def family_trainer_path(device: torch.device, card: str, label: str,
                and r.get("update_ok") is not False for r in steps):
         raise AssertionError(f"{label}: a non-finite or rejected step")
     ckpt = workdir / "checkpoints"
-    for name in ("step_00016.msgpack", "step_00032.msgpack",
-                 "serving_step_00032.msgpack"):
+    for name in (f"step_{FAMILY_STEPS:05d}.msgpack", f"step_{total:05d}.msgpack",
+                 f"serving_step_{total:05d}.msgpack"):
         if not (ckpt / name).exists():
             raise AssertionError(f"{label}: no {name}")
     audio = config.dataset == "audio"
     ext = "wav" if audio else "png"
-    if [name for name, _ in samples] != [f"step_00016.{ext}",
-                                         f"step_00032.{ext}"]:
+    if [name for name, _ in samples] != [f"step_{FAMILY_STEPS:05d}.{ext}",
+                                         f"step_{total:05d}.{ext}"][:runs]:
         raise AssertionError(f"{label}: samples {samples}")
     summary = json.loads((workdir / "summary.json").read_text())
     # rows of one step: every MDCT frame of every clip (frames layout), or
     # one example per image (features layout)
     rows = batch * (num_frames_for_length(65536, 512, 256) if audio else 1)
-    chunk_ms = [1e3 * steps[i]["step_time"] for i in range(0, 32,
+    chunk_ms = [1e3 * steps[i]["step_time"] for i in range(0, total,
                                                            FAMILY_CHUNK)]
-    ms = statistics.median([chunk_ms[1], chunk_ms[3]])
+    ms = statistics.median(chunk_ms[1::2])
     flops = summary["flops_per_step"]
     peak = profiling.peak_flops(device)
     tflops = flops / (ms / 1e3) / 1e12
     mfu = (f"mfu {tflops * 1e12 / peak:.4f}" if peak else
            "mfu not measured (no peak known for this card)")
-    print(f"{label} launches (16 + 16 steps, 2 samplings): {launches}",
-          flush=True)
-    if launches["mdct_cuda"] < (32 if config.tokenization_strategy == "mdct"
-                                else 0):
+    print(f"{label} launches ({' + '.join([str(FAMILY_STEPS)] * runs)} "
+          f"steps, {runs} sampling(s)): {launches}", flush=True)
+    if launches["mdct_cuda"] < (total if config.tokenization_strategy ==
+                                "mdct" else 0):
         raise AssertionError(f"{label}: the MDCT did not run on every step")
     print(f"[{card}] {label} ({path.name}, {n_params} params as JAX counts "
           f"them, {config.precision}, batch {batch} clips = {rows} flow "
           f"rows, chunks of {FAMILY_CHUNK}): chunk time per step "
-          f"{' / '.join(f'{v:.3f}' for v in chunk_ms)} ms (chunks 1-4; 1 "
-          f"and 3 begin a run), median of chunks 2 and 4 {ms:.3f} ms, "
+          f"{' / '.join(f'{v:.3f}' for v in chunk_ms)} ms (chunks "
+          f"1-{len(chunk_ms)}; 1 and 3 begin a run), median of the even "
+          f"chunks {ms:.3f} ms, "
           f"{1e3 / ms:.3f} steps/s, {rows / ms * 1e3:.1f} frames/s; peak "
           f"memory {peak_gb:.3f} GB; {flops / 1e9:.1f} GFLOP per step, "
           f"{tflops:.2f} achieved TFLOP/s, {mfu}; wall {wall:.1f} s for "
-          f"both runs; samples {samples} finite", flush=True)
+          f"{runs} run(s); samples {samples} finite", flush=True)
     _print_writes(writes, label)
     return launches, ms
 
@@ -2261,7 +2296,7 @@ def family_serving_path(device: torch.device, card: str, label: str,
           f"encode_bytes {enc_ms:.3f} ms, decode_bytes {dec_ms:.3f} ms "
           f"(medians of {BYTES_REPEATS}), {len(data)} bytes = "
           f"{len(data) * 8 / 10 / 1000:.1f} kbps stored v1 8-bit (seeded "
-          f"weights after 32 steps: a rate, not a quality figure); "
+          f"weights after training: a rate, not a quality figure); "
           f"launches {launches}", flush=True)
     for kernel in ("mdct_cuda", "imdct_cuda"):
         if launches[kernel] == 0:
@@ -3043,13 +3078,41 @@ TIMING_PARAMS = {"ch256_s8_lift32": 36_335_428,
 _TIMED_KEY = re.compile(r"^ms_|(ms|sec|rtf|tops|tflops|mfu|speedup)$")
 #: the phase's cuts (the tools' own defaults otherwise), for its time: the
 #: sampler's NFE 50 and 250 (26 s), the MF-vs-iMF script's 400 steps, the codec
-#: A/B's 4 rounds (14 s a round at ch512), the int8 probes' 3 repeats
+#: A/B's 4 rounds (14 s a round at ch512), the int8 probes' 3 repeats (the
+#: stage probe's and the int8 conv's to 1: 19.3 and 6.9 s at 2)
 TIMING_CUTS = {"benchmark_sampler": ["--nfe", "1", "10"],
                "benchmark_meanflow_vs_improved": ["--steps", "50"],
                "probe_codec_ab": ["--rounds", "1"],
                "probe_int8": ["--repeats", "2"],
-               "probe_int8_conv": ["--repeats", "2"],
-               "probe_stage_q": ["--repeats", "2"]}
+               "probe_int8_conv": ["--repeats", "1"],
+               "probe_stage_q": ["--repeats", "1"]}
+#: cuts of the tools' module constants, set for the phase: the codec
+#: geometry's timed groups (3 x 10 calls: 32.0 s int8) and the A/B's calls
+#: a side per round (5: 17.5 s at 1 round)
+TIMING_CONSTANTS = {
+    "meanflow_audio_codec_torch.tools.benchmarks.benchmark_codec_geometry":
+        {"GROUPS": 1},
+    "meanflow_audio_codec_torch.tools.probes.probe_codec_ab": {"CALLS": 2}}
+
+
+@contextlib.contextmanager
+def cut_tool_constants():
+    """``TIMING_CONSTANTS`` set on their modules, restored on exit."""
+    import importlib
+
+    kept = {}
+    try:
+        for name, constants in TIMING_CONSTANTS.items():
+            module = importlib.import_module(name)
+            for constant, value in constants.items():
+                kept[module, constant] = getattr(module, constant)
+                setattr(module, constant, value)
+                print(f"--- {name.rsplit('.', 1)[1]}.{constant} cut from "
+                      f"{kept[module, constant]} to {value}", flush=True)
+        yield
+    finally:
+        for (module, constant), value in kept.items():
+            setattr(module, constant, value)
 
 
 def run_tool(card: str, module, *argv: str) -> list[dict]:
@@ -3064,10 +3127,12 @@ def run_tool(card: str, module, *argv: str) -> list[dict]:
           f"{' (cut from the defaults: ' + ' '.join(cut) + ')' if cut else ''}",
           flush=True)
     out = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = module.main(argv)
     text = out.getvalue()
     print(text, end="", flush=True)
+    print(f"--- {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     lines = text.splitlines()
     if rc != 0 or not lines or lines[0] != card:
         raise AssertionError(f"{name}: rc {rc}, first line {lines[:1]}")
@@ -3250,6 +3315,260 @@ def simple_trainer_path(device: torch.device, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training (phase 15)
+# ---------------------------------------------------------------------------
+
+#: the one-rank trainer: two chunks of 16 (the second one timed)
+PARALLEL_STEPS = 32
+#: the supervised child: seconds of silence before the supervisor restarts
+#: it (10 s killed a child still importing torch beside part 1 on a loaded
+#: H100 host)
+SUPERVISE_STALL = 20
+#: the supervised child's first launch hangs once its final full checkpoint
+#: is written, before the serving file; ``--resume`` then finishes the run
+STALL_CHILD = """
+print("child: started", flush=True)
+import sys, time
+from pathlib import Path
+from meanflow_audio_codec_torch import train
+from meanflow_audio_codec_torch.training import checkpoints
+marker = Path(sys.argv[1])
+if not marker.exists():
+    marker.write_text("stalled")
+    def hang(*args, **kwargs):
+        print("child: stalling before the serving checkpoint", flush=True)
+        time.sleep(3600)
+    checkpoints.save_serving_checkpoint = hang
+sys.exit(train.main(sys.argv[2:]))
+"""
+
+
+def _free_address() -> str:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+
+
+class _Tee(io.StringIO):
+    """Keeps what is printed and prints it."""
+
+    def write(self, text: str) -> int:
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def _data_parallel_rank(rank: int, address: str, out: str) -> None:
+    """One rank of phase 15's two: one float32 step at frontier-v2 width on
+    its 8 of the 16 clips, tensors on card 0, the gradient averaged over
+    gloo; saves its loss, parameters, first moments and launches."""
+    import torch.distributed as dist
+
+    from meanflow_audio_codec_torch.parallel import (
+        create_mesh,
+        initialize_distributed,
+        shard_state,
+    )
+    from meanflow_audio_codec_torch.parallel.mesh import local_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    initialize_distributed(address, 2, rank, backend="gloo", device=device)
+    try:
+        state, step = train_setup(device, fused=False, precision="float32",
+                                  warmup_steps=0)
+        mesh = create_mesh(data=2, model=1, device_type="cuda")
+        state = shard_state(state, mesh)
+        batch = synth_audio(TRAIN_CLIPS, CLIP_LEN,
+                            torch.Generator(device).manual_seed(21), device)
+        zero_launches()
+        state, metrics = step(state, local_batch(batch, mesh),
+                              generator=torch.Generator(device).manual_seed(22))
+        torch.cuda.synchronize()
+        torch.save({"loss": metrics["loss"].item(),
+                    "params": torch.cat([p.detach().reshape(-1).cpu()
+                                         for p in state.params]),
+                    "mu": torch.cat([m.reshape(-1).cpu() for m in state.mu]),
+                    "launches": read_launches()}, out.format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def _one_rank_trainer(device: torch.device, card: str, workdir: Path) -> dict:
+    """Part 1: ``python -m meanflow_audio_codec_torch.train --config
+    configs/frontier_v2.json`` through ``main`` inside a one-rank NCCL
+    group: the sharded path at world size 1."""
+    import torch.distributed as dist
+
+    from meanflow_audio_codec_torch.parallel import initialize_distributed
+    from meanflow_audio_codec_torch.training.trainer import load_flow_state
+
+    args = ["--config", str(CONFIG), "--steps-per-call", "16",
+            "--n-steps", str(PARALLEL_STEPS), "--checkpoint-step",
+            str(PARALLEL_STEPS), "--sample-every", str(PARALLEL_STEPS),
+            "--device-pool-clips", "64", "--workdir", str(workdir)]
+    initialize_distributed(_free_address(), 1, 0, backend="nccl",
+                           device=device)
+    try:
+        zero_launches()
+        printed = _Tee()
+        with contextlib.redirect_stdout(printed):
+            if train_cli.main(args) != 0:
+                raise AssertionError("the one-rank trainer failed")
+        launches = read_launches()
+    finally:
+        dist.destroy_process_group()
+    out = printed.getvalue()
+    for line in ("Sharding over mesh {'data': 1, 'model': 1}: batch 16 -> "
+                 "16 per device",
+                 "Mesh device replay pool: 64 clips (64/device over 1 data "
+                 "shards), async int16 refresh"):
+        if line not in out:
+            raise AssertionError(f"the one-rank trainer did not print {line!r}")
+    steps = [r for r in read_log(workdir / "logs" / "train_log.jsonl")
+             if "event" not in r]
+    if [r["step"] for r in steps] != list(range(PARALLEL_STEPS)) or not all(
+            math.isfinite(r["loss"]) and r["update_ok"] is True
+            for r in steps):
+        raise AssertionError("the one-rank trainer's log")
+    ckpt = workdir / "checkpoints" / f"step_{PARALLEL_STEPS:05d}.msgpack"
+    state, _ = load_flow_state(ckpt, load_config(workdir / "config.json"),
+                               device=device)
+    serving = serialization.msgpack_restore(
+        (ckpt.parent / f"serving_step_{PARALLEL_STEPS:05d}.msgpack")
+        .read_bytes())
+    served = weights.flax_to_torch(serving["params"])
+    if state.step != PARALLEL_STEPS or not all(
+            torch.equal(e.cpu(), served[n])
+            for n, e in zip(state.names, state.ema)):
+        raise AssertionError("the reloaded checkpoint is not the run's: "
+                             f"step {state.step}, EMA != serving file")
+    if launches["mdct_cuda"] < PARALLEL_STEPS or launches["imdct_cuda"] < 1:
+        raise AssertionError(f"one-rank trainer launches {launches}")
+    ms = 1e3 * steps[16]["step_time"]
+    print(f"[{card}] one-rank NCCL trainer, frontier_v2, bf16: chunk time "
+          f"per step {1e3 * steps[0]['step_time']:.3f} / {ms:.3f} ms (chunks "
+          f"1-2; the first includes the start); step_{PARALLEL_STEPS:05d} "
+          f"reloaded (step {state.step}, EMA == serving file); launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _two_ranks_one_card(device: torch.device, card: str,
+                        scratch: Path) -> dict:
+    """Part 2: two gloo ranks on card 0, one float32 step at frontier-v2
+    width, against the one-process step on all 16 clips."""
+    state, step = train_setup(device, fused=False, precision="float32",
+                              warmup_steps=0)
+    batch = synth_audio(TRAIN_CLIPS, CLIP_LEN,
+                        torch.Generator(device).manual_seed(21), device)
+    state, metrics = step(state, batch,
+                          generator=torch.Generator(device).manual_seed(22))
+    want = {"loss": metrics["loss"].item(),
+            "params": torch.cat([p.detach().reshape(-1).cpu()
+                                 for p in state.params]),
+            "mu": torch.cat([m.reshape(-1).cpu() for m in state.mu])}
+    del state, step, batch, metrics
+    torch.cuda.empty_cache()
+    out = str(scratch / "rank{rank}.pt")
+    torch.multiprocessing.start_processes(
+        _data_parallel_rank, args=(_free_address(), out), nprocs=2,
+        start_method="spawn")
+    total = None
+    for rank in range(2):
+        got = torch.load(out.format(rank=rank))
+        errors = {name: float((got[name] - want[name]).norm()
+                              / want[name].norm()) for name in ("params", "mu")}
+        loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        print(f"two gloo ranks on one card, rank {rank}: float32 step on 8 "
+              f"of 16 clips, loss {got['loss']:.8f} vs one process "
+              f"{want['loss']:.8f} (rel {loss_err:.2e}), rel_l2 params "
+              f"{errors['params']:.3e}, first moments {errors['mu']:.3e} "
+              f"(<= {TRAIN_REL_L2}); launches {got['launches']}", flush=True)
+        if not (loss_err <= TRAIN_REL_L2 and max(errors.values())
+                <= TRAIN_REL_L2):
+            raise AssertionError(f"rank {rank} differs from one process")
+        if got["launches"]["mdct_cuda"] == 0:
+            raise AssertionError(f"rank {rank} launched no MDCT")
+        total = got["launches"] if total is None else {
+            k: (v + total[k] if isinstance(v, int) else
+                {n: c + total[k][n] for n, c in v.items()})
+            for k, v in got["launches"].items()}
+    return total
+
+
+def _supervised_restart(card: str, scratch: Path) -> subprocess.Popen:
+    """Part 3, started: ``tools/supervise`` (its torch probe) over a trainer
+    child that stalls once, at a small width; returns the process."""
+    config = json.loads(CONFIG.read_text())
+    config["base"].update(batch_size=4, n_steps=8)
+    config["model"].update(num_blocks=2)
+    config["model"]["architecture_options"].update(channels=64,
+                                                   bottleneck_dim=128)
+    config["dataset"]["tokenization_config"].update(device_pool_clips=16)
+    config["training"].update(sample_every=8, checkpoint_step=8)
+    config["tpu"].update(steps_per_call=4)
+    (scratch / "small.json").write_text(json.dumps(config))
+    (scratch / "stall_child.py").write_text(STALL_CHILD)
+    child = (f"{sys.executable} -u {scratch / 'stall_child.py'} "
+             f"{scratch / 'stalled'}")
+    log = (scratch / "supervise.log").open("w")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (str(REPO), os.environ.get("PYTHONPATH")))))
+    return subprocess.Popen(
+        [sys.executable, "-u", "-m", "meanflow_audio_codec_torch.tools."
+         "supervise", "--stall-timeout", str(SUPERVISE_STALL),
+         "--max-restarts", "1", "--probe-timeout", "120",
+         "--max-outage-wait", "60", "--command", child, "--",
+         "--config", str(scratch / "small.json"),
+         "--workdir", str(scratch / "supervised")],
+        stdout=log, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+
+
+def _check_supervised(proc: subprocess.Popen, scratch: Path) -> None:
+    rc = proc.wait(timeout=300)
+    out = (scratch / "supervise.log").read_text()
+    print("\n".join("  supervise | " + line
+                    for line in out.splitlines()[-12:]), flush=True)
+    wants = ("child: stalling before the serving checkpoint",
+             f"no output for {SUPERVISE_STALL}s", "--resume",
+             "Resumed from step 8", "completed after 1 restart(s)")
+    missing = [w for w in wants if w not in out]
+    ckpt = scratch / "supervised" / "checkpoints"
+    if rc != 0 or missing or not (ckpt / "serving_step_00008.msgpack"
+                                  ).exists():
+        raise AssertionError(f"supervise: rc {rc}, missing {missing}")
+
+
+def parallel_phase(device: torch.device, card: str, scratch: Path) -> dict:
+    """Phase 15: ``supervise`` restarting a stalled trainer child (started
+    first; it mostly waits), beside the one-rank NCCL trainer and then two
+    gloo ranks on the card against one process. Returns the launch counts
+    per path."""
+    t0 = time.perf_counter()
+    supervised = _supervised_restart(card, scratch)
+    try:
+        paths = {"parallel_trainer": _one_rank_trainer(
+            device, card, scratch / "one_rank")}
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        paths["parallel_dp_step"] = _two_ranks_one_card(device, card, scratch)
+        t2 = time.perf_counter()
+        _check_supervised(supervised, scratch)
+    finally:
+        if supervised.poll() is None:
+            supervised.kill()
+            supervised.wait()
+    t3 = time.perf_counter()
+    print(f"[{card}] parallel phase: one-rank trainer {t1 - t0:.1f} s, two "
+          f"ranks on one card {t2 - t1:.1f} s, supervised restart "
+          f"{t3 - t0:.1f} s (beside both)", flush=True)
+    return paths
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -3287,6 +3606,9 @@ def main() -> int:
     parser.add_argument("--jvp-tape", action="store_true",
                         help="the build, then the stop-gradient JVP's "
                              "tangent off and on the autograd tape alone")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="the build, then phase 15 (data-parallel "
+                             "training) alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3324,6 +3646,12 @@ def main() -> int:
         return 0
     if args.jvp_tape:
         jvp_tape_probe(device, card)
+        return 0
+    if args.parallel_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"parallel": parallel_phase(device, card,
+                                                         Path(tmp))}),
+                  flush=True)
         return 0
     clock = [time.perf_counter()]
 
@@ -3427,9 +3755,12 @@ def main() -> int:
     lap("float32 checks")
     # after phase 13's profiles: late in one process, after the timing
     # tools, torch.profiler missed some library kernels on an H100 host
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, cut_tool_constants():
         paths.update(timing_tools_phase(card, Path(tmp)))
     lap("timing tools")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(parallel_phase(device, card, Path(tmp)))
+    lap("parallel")
 
     results["gelu_grn_cuda"]["launches_by_kernel"] = {
         variant: sum(p["gelu_grn_variants"][variant] for p in paths.values())

@@ -7,8 +7,9 @@ Counterpart of ``meanflow_audio_codec_tpu/configs/config.py``. One type,
 (``dataset.*``), the optimiser (``base.*``), the run (``training.*``), the
 objective (``method.*``) and ``tpu.precision``/``remat``/
 ``skip_nonfinite_updates``/``steps_per_call``. The v2 dict it was read from
-is kept whole in ``source`` (``tpu.mesh_data``, ``mesh_model`` and
-``donate``, which the port does not read, included).
+is kept whole in ``source``; ``tpu.mesh_data`` and ``mesh_model`` are read
+from there (:attr:`CodecConfig.mesh_data`, :attr:`CodecConfig.mesh_model`),
+``donate`` is not read.
 
 Reading does what the JAX package's ``TrainFlowConfig.from_dict`` does: a
 v1 flat dict is lifted into the v2 layout (:func:`migrate_config_v1_to_v2`),
@@ -85,7 +86,7 @@ _FIELDS: dict[str, dict[str, Any]] = {
             "remat": False, "donate": True, "steps_per_call": 1,
             "skip_nonfinite_updates": False},
 }
-#: fields kept in ``source`` only (the port runs on one device)
+#: fields kept in ``source`` only (the mesh sizes are read from there)
 _NOT_READ = ("mesh_data", "mesh_model", "donate")
 #: dict fields: an empty one is written back only when the source had it
 _DICT_FIELDS = ("architecture_options", "tokenization_config")
@@ -176,6 +177,17 @@ class CodecConfig:
             if not isinstance(value, int) or value <= 0:
                 raise ValueError(f"{name} must be a positive int, got {value!r}")
         validate(self.to_dict())
+
+    @property
+    def mesh_data(self) -> int:
+        """``tpu.mesh_data``: the data axis of the mesh, -1 for every rank
+        the model axis leaves."""
+        return int((self.source.get("tpu") or {}).get("mesh_data", -1))
+
+    @property
+    def mesh_model(self) -> int:
+        """``tpu.mesh_model``: the tensor-parallel axis of the mesh."""
+        return int((self.source.get("tpu") or {}).get("mesh_model", 1))
 
     def to_dict(self) -> dict:
         """The v2 hierarchical dict of this config: the source dict with every

@@ -10,8 +10,8 @@ bytes of float32, the precision of PCM audio): the int16 batch is copied
 from pinned memory without blocking the host and dequantized on the device.
 Over a long run the pool is a sliding window over the stream.
 
-The sharded pool (``MeshDeviceReplayPool``) waits for the port of
-``parallel/``.
+``MeshDeviceReplayPool`` is the pool of a run sharded over a mesh's data
+axis: each data rank holds its own sub-pool on its device.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from meanflow_audio_codec_torch.parallel.mesh import axis_size
 
 #: int16 wire format: symmetric full-scale at this amplitude. Audio is
 #: nominally in [-1, 1]; synthetic mixtures can slightly exceed it, so
@@ -63,14 +65,18 @@ class DeviceReplayPool:
         self._rng = np.random.default_rng(seed)
         self._slot = 0
         self.skipped_refreshes = 0  # empty-queue refresh skips (run logs)
+        self._start_producer(prefetch)
+
+    def _start_producer(self, prefetch: int) -> None:
         # The producer synthesises and quantizes the next batches so that
         # refresh() never pays for the synthesis on the training thread. The
         # queue keeps the source's order, so consumption stays deterministic.
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
         self._stop = threading.Event()
         self._error: BaseException | None = None
-        self._thread = threading.Thread(target=self._produce, daemon=True,
-                                        name="DeviceReplayPool-producer")
+        self._thread = threading.Thread(
+            target=self._produce, daemon=True,
+            name=f"{type(self).__name__}-producer")
         self._thread.start()
 
     def _host_tensor(self, array: np.ndarray) -> torch.Tensor:
@@ -134,4 +140,93 @@ class DeviceReplayPool:
         self.pool[self._slot:self._slot + fresh.shape[0]] = fresh
         # pool_size is a whole number of source batches, so slots tile it
         self._slot = (self._slot + fresh.shape[0]) % self.pool_size
+        return True
+
+
+class MeshDeviceReplayPool(DeviceReplayPool):
+    """The replay pool of a run sharded over a mesh's data axis; counterpart
+    of ``MeshDeviceReplayPool`` in ``meanflow_audio_codec_tpu/data/
+    device_pool.py``.
+
+    Layout: the pool of ``pool_size`` clips is split into ``data_size``
+    contiguous sub-pools of ``local_size`` clips, as JAX places it
+    ``P('data')``; each data rank holds its own on its ``device``, so the
+    replay path moves no byte between ranks. Every rank reads the whole
+    host stream (the same source and seed on every rank):
+
+      * ``sample(k, batch)`` draws the whole ``(data_size, k * batch /
+        data_size)`` array of local indices from one
+        ``np.random.default_rng(seed)``, as JAX does, and gathers this
+        rank's row from its sub-pool: a ``[k, batch / data_size, ...]``
+        chunk, the rank's columns of JAX's ``P(None, 'data')`` chunk;
+      * ``refresh()`` splits one host batch into ``data_size`` equal slices
+        and writes this rank's slice into its sub-pool at the local slot
+        (int16 wire, non-blocking, ``skipped_refreshes`` counted), as JAX
+        scatters each slice into its device's sub-pool.
+
+    Divisibility (enforced, with JAX's errors): the source batch and the
+    training batch are multiples of the data-axis size.
+    """
+
+    def __init__(self, source: Iterator[np.ndarray], mesh,
+                 pool_clips: int = 1024, seed: int = 0, prefetch: int = 2,
+                 data_axis: str = "data",
+                 device: str | torch.device = "cuda"):
+        self.device = torch.device(device)
+        self._source = source
+        nd = axis_size(mesh, data_axis)
+        self.data_size = nd
+        self.data_rank = mesh.get_local_rank(data_axis)
+        first = np.asarray(next(source))
+        if first.shape[0] % nd:
+            raise ValueError(
+                f"source batch {first.shape[0]} not divisible by data-axis "
+                f"size {nd}")
+        self._batch = first.shape[0]
+        n_batches = max(2, -(-pool_clips // self._batch))
+        host = [first] + [np.asarray(next(source))
+                          for _ in range(n_batches - 1)]
+        wire = _quantize(np.concatenate(host, axis=0))
+        self.pool_size = int(wire.shape[0])
+        self.local_size = self.pool_size // nd
+        start = self.data_rank * self.local_size
+        self.pool = _dequantize(torch.from_numpy(
+            wire[start:start + self.local_size]).to(self.device))
+        self._rng = np.random.default_rng(seed)
+        self._local_slot = 0
+        self.skipped_refreshes = 0  # empty-queue refresh skips (run logs)
+        self._start_producer(prefetch)
+
+    def sample(self, k: int, batch: int) -> torch.Tensor:
+        """This rank's ``[k, batch / data_size, ...]`` chunk."""
+        if batch % self.data_size:
+            raise ValueError(
+                f"batch {batch} not divisible by data-axis size "
+                f"{self.data_size}")
+        per_dev = batch // self.data_size
+        idx = self._rng.integers(0, self.local_size,
+                                 size=(self.data_size, k * per_dev),
+                                 dtype=np.int32)
+        mine = self._host_tensor(np.ascontiguousarray(idx[self.data_rank]))
+        mine = mine.to(self.device, non_blocking=True)
+        return self.pool.index_select(0, mine).reshape(
+            (k, per_dev) + tuple(self.pool.shape[1:]))
+
+    def refresh(self, wait: bool = False) -> bool:
+        """Write this rank's slice of one pre-produced host batch into its
+        sub-pool; the contract of :meth:`DeviceReplayPool.refresh`."""
+        try:
+            wire = self._queue.get() if wait else self._queue.get_nowait()
+        except queue.Empty:
+            self.skipped_refreshes += 1
+            return False
+        if wire is None:
+            if self._error is not None:
+                raise self._error
+            return False
+        per = wire.shape[0] // self.data_size
+        mine = wire[self.data_rank * per:(self.data_rank + 1) * per]
+        fresh = _dequantize(mine.to(self.device, non_blocking=True))
+        self.pool[self._local_slot:self._local_slot + per] = fresh
+        self._local_slot = (self._local_slot + per) % self.local_size
         return True

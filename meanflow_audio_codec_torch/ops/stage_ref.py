@@ -11,28 +11,33 @@ the ops' backward and tangents.
 
 from __future__ import annotations
 
-import math
-
 import torch
+import torch.nn.functional as F
 
 _LN_EPS = 1e-6
 _GRN_SQ_EPS = 1e-12
 _GRN_MEAN_EPS = 1e-6
-_GELU_A = math.sqrt(2.0 / math.pi)
-_GELU_K = 0.044715
+
+
+# No plain version calls MKL's vector math (ROADMAP §3): on the CPU
+# ``torch.tanh`` is MKL's ``vsTanh``, which once returned one internal
+# thread's 2048-element chunk at its reduced-accuracy (EP) level, about 5e-5
+# off in tanh, and ``torch.sqrt`` is ``vsSqrt``, whose last bit depends on
+# MKL's code path. Both GELU functions run ATen's own gelu kernels (SLEEF's
+# tanhf, 1 ulp), and GRN's square root is taken in float64 and rounded once
+# to float32.
 
 
 def _gelu_f32(x: torch.Tensor) -> torch.Tensor:
-    """tanh-approximate GELU, as ``jax.nn.gelu(approximate=True)``."""
-    u = _GELU_A * (x + _GELU_K * x * x * x)
-    return 0.5 * x * (1.0 + torch.tanh(u))
+    """tanh-approximate GELU, as ``jax.nn.gelu(approximate=True)``:
+    ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def _gelu_grad_f32(x: torch.Tensor) -> torch.Tensor:
     """d/dx of the tanh-approximate GELU."""
-    th = torch.tanh(_GELU_A * (x + _GELU_K * x * x * x))
-    du = _GELU_A * (1.0 + 3.0 * _GELU_K * x * x)
-    return 0.5 * (1.0 + th) + 0.5 * x * (1.0 - th * th) * du
+    return torch.ops.aten.gelu_backward(torch.ones_like(x), x,
+                                        approximate="tanh")
 
 
 def _ln_stats_f32(x3: torch.Tensor):
@@ -61,7 +66,7 @@ def _ln_norm_ref(x3: torch.Tensor):
 def _gelu_grn_ref(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
     """[B,P,C], [C], [C] -> (y [B,P,C] in x's dtype, gx [B,C])."""
     g = _gelu_f32(x3.float())
-    gx = torch.sqrt((g * g).sum(dim=1) + _GRN_SQ_EPS)
+    gx = ((g * g).sum(dim=1) + _GRN_SQ_EPS).double().sqrt().float()
     m = gx.mean(dim=-1, keepdim=True) + _GRN_MEAN_EPS
     y = g * (gamma.float() + (gx / m)[:, None, :]) + beta.float()
     return y.to(x3.dtype), gx

@@ -94,11 +94,16 @@ def seeded_audio(batch_clips: int, clip_seconds: float,
     return torch.from_numpy(audio).to(device)
 
 
-def bench_geometry(name: str, *, batch_clips: int = 16, iters: int = ITERS,
-                   groups: int = GROUPS, clip_seconds: float = CLIP_SECONDS,
+def bench_geometry(name: str, *, batch_clips: int = 16,
+                   iters: int | None = None, groups: int | None = None,
+                   clip_seconds: float = CLIP_SECONDS,
                    quantized: bool = False,
                    device: str | torch.device = "cuda",
                    **model_kwargs) -> dict:
+    """One codec geometry's row: ``groups`` timed groups of ``iters`` calls
+    (the module's ``GROUPS`` and ``ITERS`` when unset)."""
+    iters = ITERS if iters is None else iters
+    groups = GROUPS if groups is None else groups
     device = torch.device(device)
     tok = tokenizer()
     model = build_model(device, quantized=quantized, **model_kwargs)

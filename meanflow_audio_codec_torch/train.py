@@ -10,7 +10,11 @@ Without ``--config`` the run starts from ``create_audio_config`` (``--dataset
 audio``) or ``create_mnist_config`` (otherwise) with the flags' overrides;
 ``--method improved_mean_flow`` also sets ``use_improved_mean_flow``, and the
 tokenization flags fold into ``dataset.tokenization_config``. Trains on the
-card (``train_flow(device="cuda")``).
+card (``train_flow(device="cuda")``). Under ``torchrun`` each rank runs this
+CLI and the run is sharded over the ranks (``training/trainer.py``):
+
+    torchrun --nproc-per-node 4 -m meanflow_audio_codec_torch.train \
+        --config configs/frontier_v2.json --workdir outputs/run
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import argparse
 import json
 import sys
 from pathlib import Path
+
+import torch.distributed as dist
 
 from meanflow_audio_codec_torch.configs import (
     CodecConfig,
@@ -167,7 +173,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.config is None and args.workdir is None:
         print("error: provide --config and/or --workdir", file=sys.stderr)
         return 2
+    grouped = dist.is_initialized()
     train_flow(config_from_args(args), resume=args.resume)
+    if not grouped and dist.is_initialized():  # the group the run formed
+        dist.destroy_process_group()
     return 0
 
 

@@ -17,8 +17,10 @@ contract, so that either package resumes from the other's files:
   * a params-only file (``save_params_only``): the Flax param tree alone.
 
 Full checkpoints are matched by an anchored name pattern, so a
-``serving_step_*`` file is never taken for one. The ``orbax`` format is not
-ported (``checkpoint_format: "orbax"`` raises).
+``serving_step_*`` file is never taken for one. A sharded run passes its
+full state (``ShardedTrainState.full()``) and writes from rank 0 alone, so
+the files are the same. The one format not ported is ``orbax``
+(``checkpoint_format: "orbax"`` raises, naming ROADMAP §1).
 """
 
 from __future__ import annotations

@@ -275,6 +275,23 @@ class TrainState:
                 self._ema = torch.where(ok, update.ema, self._ema)
             self.count.add_(ok.to(torch.int64))
 
+    # The train step's hooks for a state placed on a mesh
+    # (``parallel.ShardedTrainState``); one process owns the whole batch.
+    data_size = 1
+    data_rank = 0
+
+    def reduce_gradients(self, grads) -> list[torch.Tensor]:
+        return list(grads)
+
+    def mean_over_data(self, metrics: dict) -> dict:
+        return metrics
+
+    def agree(self, ok: torch.Tensor) -> torch.Tensor:
+        return ok
+
+    def full(self) -> TrainState:
+        return self
+
     def ema_state_dict(self) -> dict[str, torch.Tensor]:
         """EMA parameters by the model's parameter names."""
         if self._ema is None:

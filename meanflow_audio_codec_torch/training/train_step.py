@@ -11,6 +11,12 @@ The single step decides the guard on the host and updates the state in
 place only when it passes; the chunk decides it on the device for each of
 its K steps, so the K steps run without a host synchronisation.
 
+A state placed on a mesh (``parallel.shard_state``) takes this rank's
+slice of the batch: the draws are made for the global batch and sliced,
+the gradient and the metrics are averaged over the data ranks before the
+norm, and the guard decides the same way on every rank (the state's
+``reduce_gradients``, ``mean_over_data`` and ``agree``).
+
     state = TrainState(model, make_optimizer(config), config.ema_decay)
     # on the card; TrainState(..., device="cpu") for the plain versions
     step = make_train_step(create_loss_strategy(config), adapter,
@@ -52,6 +58,24 @@ def _check_devices(state: TrainState, **tensors) -> None:
                              f"state on {state.device}")
 
 
+def _draw(objective, state, x, generator, noise, t, r) -> dict:
+    """The objective's draws for ``x``. On a state split over data ranks
+    ``x`` is this rank's rows of the global batch: every rank draws for the
+    global batch (the same values, from the same seed) and keeps its rows,
+    so a sharded step sees the draws of the one-process step; ``noise``,
+    ``t`` and ``r``, when given, are the global batch's too."""
+    shards = state.data_size
+    if shards == 1:
+        return objective.draw(state.model, x, generator, noise=noise, t=t,
+                              r=r)
+    rows = x.shape[0]
+    every = x.new_empty((rows * shards, *x.shape[1:]))
+    draws = objective.draw(state.model, every, generator, noise=noise, t=t,
+                           r=r)
+    start = state.data_rank * rows
+    return {name: value[start:start + rows] for name, value in draws.items()}
+
+
 def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
                      generator, noise, t, r):
     """(metrics, update) of one step on ``batch``; nothing is written."""
@@ -61,17 +85,20 @@ def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
             x = tokenizer.tokenize(x)
         if flatten and x.ndim > 2:
             x = x.reshape(x.shape[0], -1)
-    draws = objective.draw(state.model, x, generator, noise=noise, t=t, r=r)
+    draws = _draw(objective, state, x, generator, noise, t, r)
 
     def loss_fn():
         return objective.loss(state.model, x, **draws)
 
     loss, aux = (checkpoint(loss_fn, use_reentrant=False) if remat
                  else loss_fn())
-    grads = torch.autograd.grad(loss, state.params)
+    # averaged over the data ranks before the norm, the clip and AdamW
+    grads = state.reduce_gradients(torch.autograd.grad(loss, state.params))
     grad_norm = global_norm(grads)
     update = state.apply_gradients(grads, grad_norm)
-    return {"loss": loss.detach(), "grad_norm": grad_norm, **aux}, update
+    metrics = state.mean_over_data({"loss": loss.detach(), **aux})
+    return {"loss": metrics.pop("loss"), "grad_norm": grad_norm,
+            **metrics}, update
 
 
 def make_train_step(objective: Objective, tokenizer=None,
@@ -100,7 +127,8 @@ def make_train_step(objective: Objective, tokenizer=None,
                                            noise, t, r)
         ok = True
         if skip_nonfinite:
-            ok = bool(_finite(metrics["loss"], metrics["grad_norm"], update))
+            ok = bool(state.agree(_finite(metrics["loss"],
+                                          metrics["grad_norm"], update)))
             metrics["update_ok"] = ok
         if ok:
             state.commit(update)
@@ -139,7 +167,8 @@ def make_multi_step(objective: Objective, num_steps: int,
                 objective, tokenizer, flatten, remat, state, batches[i],
                 generator, *draws)
             if skip_nonfinite:
-                ok = _finite(metrics["loss"], metrics["grad_norm"], update)
+                ok = state.agree(_finite(metrics["loss"],
+                                         metrics["grad_norm"], update))
                 state.commit_where(update, ok)
                 metrics["update_ok"] = ok
             else:

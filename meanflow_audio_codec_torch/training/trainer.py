@@ -18,10 +18,25 @@ Every objective of the JAX package trains (autoencoder, flow matching,
 mean flow, improved mean flow; the learned loss weighting, whose polynomial
 the factory adds to the model's parameters; latent QAT), and ``tpu.remat`` recomputes the
 loss in the backward pass. What the port's trainer does not take yet raises,
-naming the ROADMAP item: more than one device and orbax
-checkpoints. Noise, t and r come from one
+naming the ROADMAP item: orbax checkpoints. Noise, t and r come from one
 ``torch.Generator`` on the state's device seeded with ``config.seed``; like
 the JAX key, it is not saved, so a resumed run draws anew from the seed.
+
+Sharded training: where JAX shards over the devices of one process, the
+port runs one process per rank in a ``torch.distributed`` group
+(``torchrun --nproc-per-node N -m meanflow_audio_codec_torch.train ...``,
+or a group the caller formed). Whenever a group exists the run is sharded
+over a ``(data, model)`` mesh of ``tpu.mesh_data`` x ``tpu.mesh_model``
+ranks (``mesh_data`` -1: the world size over ``mesh_model``): each data
+rank trains on its slice of the global batch (from the
+``MeshDeviceReplayPool`` when the device pool is on, else from its slice of
+the host stream, stacked ``[K, B/n, ...]`` per chunk), draws its rows of the
+global batch's noise, t and r, and the gradient is averaged over the data
+ranks before the clip and AdamW (``parallel.ShardedTrainState``). A batch
+that the data axis does not divide runs unsharded on every rank, as JAX's
+does. Only rank 0 writes the workdir's files (metadata, config, logs,
+samples, checkpoints from full tensors, summary); the other ranks return a
+summary of their final loss.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from meanflow_audio_codec_torch.configs import CodecConfig
 from meanflow_audio_codec_torch.data.audio import (
@@ -43,12 +59,25 @@ from meanflow_audio_codec_torch.data.audio import (
     synthetic_pipeline_for_family,
     write_wav,
 )
-from meanflow_audio_codec_torch.data.device_pool import DeviceReplayPool
+from meanflow_audio_codec_torch.data.device_pool import (
+    DeviceReplayPool,
+    MeshDeviceReplayPool,
+)
 from meanflow_audio_codec_torch.data.mnist import load_mnist
 from meanflow_audio_codec_torch.device import resolve_device
 from meanflow_audio_codec_torch.models.factories import create_flow_model
 from meanflow_audio_codec_torch.ops.losses import ema
 from meanflow_audio_codec_torch.ops.sampling import sample, sample_dual_time
+from meanflow_audio_codec_torch.parallel import (
+    initialize_distributed,
+    mesh_from_config,
+    shard_state,
+)
+from meanflow_audio_codec_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_size,
+    local_batch,
+)
 from meanflow_audio_codec_torch.ops.tokenize import (
     compute_token_shape,
     create_tokenization_strategy,
@@ -115,12 +144,6 @@ def _check_ported(config: CodecConfig) -> None:
     does not take yet."""
     create_tokenization_strategy(config.tokenization_strategy,
                                  config.tokenization_config)
-    tpu = config.source.get("tpu") or {}
-    if tpu.get("mesh_data", -1) > 1 or tpu.get("mesh_model", 1) > 1:
-        raise NotImplementedError(
-            "more than one device is not ported yet (ROADMAP §1, "
-            f"parallel/): tpu.mesh_data {tpu.get('mesh_data')}, "
-            f"tpu.mesh_model {tpu.get('mesh_model')}")
     create_loss_strategy(config)
     if config.architecture_options.get("quantized"):
         raise ValueError(
@@ -185,6 +208,14 @@ def train_flow(config: CodecConfig, resume: bool = False,
     """
     device = resolve_device(device)
     _check_ported(config)
+    grouped = initialize_distributed(device=device)
+    if grouped and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    writer = not grouped or dist.get_rank() == 0  # writes the workdir
+    say = print if writer else (lambda *args, **kwargs: None)
+    # a mesh the group cannot hold is refused before anything is written
+    mesh = (mesh_from_config(config, device_type=device.type) if grouped
+            else None)
     workdir = Path(config.workdir)
     samples_dir = workdir / "samples"
     checkpoints_dir = workdir / "checkpoints"
@@ -201,15 +232,16 @@ def train_flow(config: CodecConfig, resume: bool = False,
                                               input_example_shape(config))
     noise_dim = token_dim if mode == "frames" else n_tokens * token_dim
     if noise_dim != config.noise_dimension:
-        print(f"Overriding noise_dimension {config.noise_dimension} -> "
+        say(f"Overriding noise_dimension {config.noise_dimension} -> "
               f"{noise_dim} (tokenized width, mode={mode})")
         config = dataclasses.replace(config, noise_dimension=noise_dim)
 
     # ---- run metadata / config persistence ---------------------------------
-    save_json(collect_experiment_metadata(config, device),
-              workdir / "metadata.json")
     config_path = workdir / "config.json"
-    if resume and config_path.exists():
+    if writer:
+        save_json(collect_experiment_metadata(config, device),
+                  workdir / "metadata.json")
+    if writer and resume and config_path.exists():
         try:
             generate_config_diff(json.loads(config_path.read_text()),
                                  config.to_dict(),
@@ -218,7 +250,8 @@ def train_flow(config: CodecConfig, resume: bool = False,
             # a config.json that is not a v2 dict, e.g. truncated by a
             # crash: train on without a diff, as the JAX trainer does
             print(f"Could not diff previous config: {exc}")
-    save_json(config.to_dict(), config_path)
+    if writer:
+        save_json(config.to_dict(), config_path)
 
     # ---- model / optimizer / state -----------------------------------------
     model = create_flow_model(
@@ -233,19 +266,47 @@ def train_flow(config: CodecConfig, resume: bool = False,
                                                           state)
         if restored is not None:
             state, start_step = restored
-            print(f"Resumed from step {start_step}")
+            say(f"Resumed from step {start_step}")
         else:
-            print("No valid checkpoint found; starting from scratch")
+            say("No valid checkpoint found; starting from scratch")
+
+    # ---- sharding (data parallel over 'data', tensor parallel over 'model')
+    if mesh is not None:
+        data_size = axis_size(mesh, DATA_AXIS)
+        if config.batch_size % data_size == 0:
+            state = shard_state(state, mesh)
+            shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            say(f"Sharding over mesh {shape}: batch {config.batch_size} -> "
+                f"{config.batch_size // data_size} per device")
+        else:
+            say(f"batch_size {config.batch_size} not divisible by mesh "
+                f"data axis {data_size}; running single-device")
+            mesh = None
+
+    def to_device(array: np.ndarray, dim: int = 0) -> torch.Tensor:
+        """A host batch on the device: this data rank's slice of it along
+        ``dim`` when sharded."""
+        tensor = torch.from_numpy(np.asarray(array))
+        if mesh is not None:
+            tensor = local_batch(tensor, mesh, dim)
+        return tensor.to(device)
 
     # ---- data / objective / chunked step -----------------------------------
     data_iter = make_dataset_iterator(config)
     pool_clips = device_pool_clips(config)
     device_pool = None
-    if pool_clips:
+    if pool_clips and mesh is None:
         device_pool = DeviceReplayPool(data_iter, pool_clips=pool_clips,
                                        seed=config.seed, device=device)
-        print(f"Device replay pool: {device_pool.pool_size} clips resident "
-              f"on {device}, async int16 refresh")
+        say(f"Device replay pool: {device_pool.pool_size} clips resident "
+            f"on {device}, async int16 refresh")
+    elif pool_clips:
+        device_pool = MeshDeviceReplayPool(data_iter, mesh,
+                                           pool_clips=pool_clips,
+                                           seed=config.seed, device=device)
+        say(f"Mesh device replay pool: {device_pool.pool_size} clips "
+            f"({device_pool.local_size}/device over "
+            f"{device_pool.data_size} data shards), async int16 refresh")
     objective = create_loss_strategy(config)
     steps_per_call = config.steps_per_call
     skip = config.skip_nonfinite_updates
@@ -256,10 +317,10 @@ def train_flow(config: CodecConfig, resume: bool = False,
         step_fn = make_train_step(objective, adapter, remat=config.remat,
                                   skip_nonfinite=skip)
 
-    log = LogWriter(logs_dir / "train_log.jsonl")
+    log = LogWriter(logs_dir / "train_log.jsonl") if writer else None
+    first_raw = None if device_pool else np.asarray(next(data_iter))
     first_batch = (device_pool.sample(1, config.batch_size)[0]
-                   if device_pool else
-                   torch.from_numpy(np.asarray(next(data_iter))).to(device))
+                   if device_pool else to_device(first_raw))
 
     def probe(batch):
         """One step's loss and gradients, nothing written (FLOP count)."""
@@ -274,12 +335,12 @@ def train_flow(config: CodecConfig, resume: bool = False,
         log_writer=log,
         flops_per_step=flops * steps_per_call if flops else None,
         device=device)
-    print(f"Device {checkpoints.device_name(device)}: "
+    say(f"Device {checkpoints.device_name(device)}: "
           + (f"bf16 peak {profiler.peak / 1e12:.1f} TFLOP/s for mfu"
              if profiler.peak else "no known peak, mfu not written")
           + (f"; {flops / 1e9:.1f} GFLOP per step" if flops else ""))
     profiler.start_training(param_count=param_count)
-    print(f"Training {config.architecture or 'mlp'} / "
+    say(f"Training {config.architecture or 'mlp'} / "
           f"{config.method or 'flow_matching'} on {config.dataset}: "
           f"{param_count:,} params, noise_dim {noise_dim}, "
           f"{config.n_steps} steps")
@@ -289,7 +350,7 @@ def train_flow(config: CodecConfig, resume: bool = False,
     token_shape = (n_tokens, token_dim)
     generator = torch.Generator(device).manual_seed(config.seed)
     # samplers prefer the EMA weights when tracked: a model copy holds them
-    sampler = (copy.deepcopy(state.model) if state.ema is not None
+    sampler = (copy.deepcopy(state.model) if state.ema_decay
                else state.model)
 
     loss_ema = None
@@ -302,9 +363,12 @@ def train_flow(config: CodecConfig, resume: bool = False,
     def run_sampling(state, step: int) -> None:
         if (config.method or "") == "autoencoder":
             return
+        ema = state.ema  # gathered over the model axis: every rank reads it
+        if not writer:
+            return
         model = sampler
-        if state.ema is not None:
-            torch._foreach_copy_(list(model.parameters()), state.ema)
+        if ema is not None:
+            torch._foreach_copy_(list(model.parameters()), ema)
         x_tokens, gains = adapter.tokenize_with_gain(eval_batch)
         latents = model.encode(x_tokens)
         flat = (sample_dual_time if is_mean_flow else sample)(
@@ -332,8 +396,23 @@ def train_flow(config: CodecConfig, resume: bool = False,
                                            skip_nonfinite=skip)
         return chunk_fns[k]
 
+    def save_checkpoint(step: int, serving: bool = False) -> None:
+        full = state.full()  # full tensors (a gather on every rank)
+        if not writer:
+            return
+        checkpoints.save_checkpoint_with_metadata(
+            full, checkpoints_dir, step=step, config=config,
+            fmt=config.checkpoint_format)
+        checkpoints.cleanup_old_checkpoints(
+            checkpoints_dir, config.max_checkpoints_to_keep,
+            final_step=config.n_steps)
+        if serving:
+            checkpoints.save_serving_checkpoint(full, checkpoints_dir,
+                                                step=step)
+
     step = start_step
     first_chunk = True
+    loss = float("nan")
     while step < config.n_steps:
         k = min(steps_per_call, config.n_steps - step)
         profiler.before_step()
@@ -344,18 +423,17 @@ def train_flow(config: CodecConfig, resume: bool = False,
                 device_pool.refresh()
                 batch = device_pool.sample(1, config.batch_size)[0]
             else:
-                batch = torch.from_numpy(np.asarray(next(data_iter))).to(
-                    device)
+                batch = to_device(next(data_iter))
         else:
             if device_pool:
                 stacked = device_pool.sample(k, config.batch_size)
                 state, series = chunk_fn(k)(state, stacked, generator)
                 device_pool.refresh()  # its copy overlaps the chunk
             else:
-                raws = [batch.cpu().numpy()] if first_chunk else []
+                raws = [first_raw] if first_chunk else []
                 while len(raws) < k:
                     raws.append(np.asarray(next(data_iter)))
-                stacked = torch.from_numpy(np.stack(raws)).to(device)
+                stacked = to_device(np.stack(raws), dim=1)  # [K, B/n, ...]
                 state, series = chunk_fn(k)(state, stacked, generator)
             series = {name: value.cpu().numpy()
                       for name, value in series.items()}
@@ -375,6 +453,8 @@ def train_flow(config: CodecConfig, resume: bool = False,
                 skipped_updates += 1
             if np.isfinite(loss):  # a skipped NaN step must not poison the EMA
                 loss_ema = ema(loss_ema, loss)
+            if not writer:
+                continue
             log.write_step(step + i, loss=loss, loss_avg=loss_ema, mse=mse,
                            lr=lr_at_step(config, step + i),
                            grad_norm=grad_norm, update_ok=update_ok,
@@ -400,23 +480,15 @@ def train_flow(config: CodecConfig, resume: bool = False,
         if crossed(config.sample_every):
             run_sampling(state, step)
         if crossed(config.checkpoint_step or config.sample_every):
-            checkpoints.save_checkpoint_with_metadata(
-                state, checkpoints_dir, step=step, config=config,
-                fmt=config.checkpoint_format)
-            checkpoints.cleanup_old_checkpoints(
-                checkpoints_dir, config.max_checkpoints_to_keep,
-                final_step=config.n_steps)
+            save_checkpoint(step)
 
     # ---- finalisation -------------------------------------------------------
     run_sampling(state, config.n_steps)
-    checkpoints.save_checkpoint_with_metadata(
-        state, checkpoints_dir, step=config.n_steps, config=config,
-        fmt=config.checkpoint_format)
-    checkpoints.cleanup_old_checkpoints(checkpoints_dir,
-                                        config.max_checkpoints_to_keep,
-                                        final_step=config.n_steps)
-    checkpoints.save_serving_checkpoint(state, checkpoints_dir,
-                                        step=config.n_steps)
+    save_checkpoint(config.n_steps, serving=True)
+    if not writer:
+        if device_pool is not None:
+            device_pool.close()
+        return {"rank": dist.get_rank(), "loss": {"final": loss}}
     perf = profiler.end_training(config.n_steps - start_step)
     summary = generate_training_summary(
         log.path, total_time=perf["total_time_sec"],

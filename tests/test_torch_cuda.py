@@ -29,6 +29,8 @@ The timing tools: a codec-geometry row launches one MDCT and one IMDCT a
 call (and 72 int8 products a quantized call), a fused conv_mfu row the
 three stage kernels (the unfused one none), and the profiler records an
 int8 GEMM kernel for each of a quantized decoder call's 72 products.
+Two gloo ranks on the one card (``tests/torch_ranks.py``) take a
+data-parallel step equal to the one-process step (relative L2 1e-5).
 """
 
 import pytest
@@ -1187,3 +1189,81 @@ def test_profiler_counts_the_int8_gemm_kernels_of_one_decoder_call(device):
     report = kernel_report(prof)
     assert report["int_mm_calls"] == 72
     assert report["int8_gemm_kernels"] >= 72, report["int8_gemm_kernel_names"]
+
+
+def test_two_gloo_ranks_on_the_card_step_as_one_process(device, tmp_path):
+    """Data parallelism on one card: 2 ranks (tests/torch_ranks.py) over
+    gloo, each holding its half of the batch on the card, take one step
+    that equals the one-process step on the whole batch: relative L2 1e-5
+    on the parameters, rtol 1e-5 on the loss (the gradient is averaged over
+    the ranks, in another order; TF32 off). Each rank launches the MDCT
+    kernel for its tokenization."""
+    import torch_ranks
+
+    from meanflow_audio_codec_torch.configs import config_from_dict
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import (
+        create_tokenization_strategy,
+    )
+    from meanflow_audio_codec_torch.training.adapter import (
+        adapter_from_config,
+    )
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+    from meanflow_audio_codec_torch.training.train_step import make_train_step
+
+    config = {
+        "config_version": "2.0",
+        "base": {"batch_size": 4, "n_steps": 10, "base_lr": 1e-3,
+                 "weight_decay": 1e-4, "seed": 0, "grad_clip_norm": 1.0},
+        "model": {"noise_dimension": 256, "condition_dimension": 16,
+                  "latent_dimension": 8, "num_blocks": 2,
+                  "architecture": "convnet",
+                  "architecture_options": {"channels": 32,
+                                           "bottleneck_dim": 64,
+                                           "spatial": 4, "lift_channels": 8}},
+        "dataset": {"dataset": "audio", "tokenization_strategy": "mdct",
+                    "tokenization_config": {"frame_size": 4096,
+                                            "window_size": 128,
+                                            "coeff_scale": 4.0,
+                                            "gain_norm": 0.05}},
+        "method": {"method": "improved_mean_flow",
+                   "use_improved_mean_flow": True},
+        "training": {"sample_every": 100, "sample_seed": 0,
+                     "sample_steps": 1, "workdir": "unused",
+                     "ema_decay": 0.9},
+        "tpu": {"precision": "float32"},
+    }
+    cfg = config_from_dict(config)
+    model = create_flow_model(cfg, generator=torch.Generator().manual_seed(1))
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = 0.3 * torch.randn(4, 4096, 2,
+                              generator=torch.Generator().manual_seed(2))
+    torch.save({"config": config, "params": params, "batch": batch},
+               tmp_path / "inputs.pt")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        adapter = adapter_from_config(cfg, create_tokenization_strategy(
+            cfg.tokenization_strategy, cfg.tokenization_config))
+        state = TrainState(model, make_optimizer(cfg), 0.9, device=device)
+        state, metrics = make_train_step(create_loss_strategy(cfg), adapter)(
+            state, batch.to(device),
+            generator=torch.Generator(device).manual_seed(0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch_ranks.launch(torch_ranks.card_step, 2, str(tmp_path / "inputs.pt"),
+                       str(tmp_path / "rank{rank}.pt"), device="cuda")
+    want = torch.cat([p.detach().reshape(-1).cpu() for p in state.params])
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        assert got["launches"] > 0
+        flat = torch.cat([p.reshape(-1) for p in got["params"]])
+        assert float((flat - want).norm() / want.norm()) <= 1e-5
+        assert abs(got["loss"] - float(metrics["loss"])) <= 1e-5 * abs(
+            float(metrics["loss"]))

@@ -74,6 +74,18 @@ def test_the_timing_tools_are_checked():
     assert tools <= names
 
 
+def test_the_parallel_layer_and_run_tools_are_checked():
+    """The JAX package's ``parallel/`` modules, its supervisor and its
+    wavegen tool have counterparts of the same name among the files the
+    tests above walk (so none of them imports JAX)."""
+    ref = REPO / "meanflow_audio_codec_tpu"
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    wanted = {str(p.relative_to(ref)) for p in (ref / "parallel").glob("*.py")}
+    assert len(wanted) == 3
+    assert wanted | {"tools/supervise.py", "tools/download_wavegen.py",
+                     "parallel/sharded_state.py"} <= names
+
+
 _CLI_PROBE = """
 import runpy, sys
 sys.argv = ["codec_cli", "info", {path!r}]

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from flax import serialization as fs
 
 from meanflow_audio_codec_tpu.configs import (
@@ -372,7 +373,8 @@ def test_geometry_helpers():
     ("dataset", {"dataset": "mnist", "tokenization_strategy": "wavelet"},
      ValueError),
     ("method", {"loss_strategy": "diffusion"}, ValueError),
-    ("tpu", {"mesh_data": 4}, NotImplementedError),
+    # a mesh the process group cannot hold (4 data ranks in a group of 1)
+    ("tpu", {"mesh_data": 4}, ValueError),
     ("training", {"checkpoint_format": "orbax"}, NotImplementedError),
     ("model", {"architecture_options": {"channels": 16, "spatial": 4,
                                         "quantized": True}}, ValueError),
@@ -380,11 +382,21 @@ def test_geometry_helpers():
 def test_train_flow_refuses_what_is_not_ported(tmp_path, section, values,
                                                error):
     # an unknown tokenization or objective is refused when the config is
-    # read, as the JAX package's validation does; the rest by train_flow
-    with pytest.raises(error) as info:
-        train_flow(config_from_dict(_tiny(tmp_path / "run",
-                                          **{section: values})),
-                   device="cpu")
+    # read, as the JAX package's validation does; the rest by train_flow.
+    # The mesh is built in a process group only (here one of 1 rank);
+    # without one a run trains unsharded, as JAX's does on one device.
+    grouped = section == "tpu"
+    if grouped:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        with pytest.raises(error) as info:
+            train_flow(config_from_dict(_tiny(tmp_path / "run",
+                                              **{section: values})),
+                       device="cpu")
+    finally:
+        if grouped:
+            dist.destroy_process_group()
     if error is NotImplementedError:
         assert "ROADMAP" in str(info.value)
     assert not (tmp_path / "run").exists()
