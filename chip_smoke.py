@@ -5,14 +5,16 @@
     python3 chip_smoke.py --transforms-only   # phases 1-3 for MDCT/IMDCT
     python3 chip_smoke.py --jvp-tape   # the build, then the tape probe
     python3 chip_smoke.py --parallel-only   # the build, then phase 15
+    python3 chip_smoke.py --orbax-only   # the build, then phase 16
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from meanflow_audio_codec_torch/csrc (nvcc),
-     the rANS coder from native/entropy.cpp and the audio loader from
-     native/dataloader.cpp (g++), all sources at once,
+     the rANS coder from native/entropy.cpp, the audio loader from
+     native/dataloader.cpp and the zstd decoder from csrc/zstd.cpp (g++),
+     all sources at once,
      and print the build seconds, the ptxas report and
      the instruction mix of the MDCT's, IMDCT's and single-read GELU+GRN's
      main loops (cuobjdump);
@@ -229,6 +231,18 @@ and prints no result line):
      both, ``tools/supervise`` (its torch probe of the card) over a small
      trainer child whose first launch stalls once, restarted with
      ``--resume`` to its end; the parts' wall seconds;
+  16. (after 15) orbax checkpoints without JAX, tensorstore or zstandard:
+     the JAX-written run ``tests/fixtures/torch_orbax_run`` (every leaf of
+     its orbax directory against its msgpack twin bit for bit, then
+     served by ``from_workdir`` on 2 x 32768 samples against serving the
+     twin); ``python -m meanflow_audio_codec_torch.train`` on a copy of
+     configs/frontier_v2.json with ``checkpoint_format: "orbax"`` (16
+     steps, a checkpoint at 16, then ``--resume`` to 32; pool 64 clips),
+     each orbax write followed by a msgpack checkpoint of the same state,
+     each pair of checkpoints equal leaf for leaf, the seconds, bytes and
+     MB/s of every write and read; and the resumed run served from its
+     orbax directory, a 10 s clip's ``encode_bytes``/``decode_bytes``
+     equal to those served from the msgpack twin;
   14. a ``{"kernels": [...]}`` line (launches per path: the transform
      layers' gradient, round trip, train, trainer, codec bytes, codec CLI,
      quantized serving, streaming, QAT trainer, eval_suite,
@@ -236,12 +250,14 @@ and prints no result line):
      stream and serving, each objective, each remat setting, the three
      family trainers, the two codecs' serving, the matrix, evaluate_all,
      the flag-driven trainer, each timing tool that launches a kernel,
-     the one-rank trainer and the two ranks' step),
+     the one-rank trainer and the two ranks' step, the orbax fixture,
+     trainer and serving),
      then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--parallel-only`` it builds, then runs phase 15 alone and prints
-its launches but no result line. With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
+its launches but no result line; ``--orbax-only`` does the same for phase
+16. With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
 copied into another checkout of the port, it times that checkout's kernels
 at the same shapes. With ``--jvp-tape`` it builds, then times bare bf16 iMF
@@ -3569,6 +3585,240 @@ def parallel_phase(device: torch.device, card: str, scratch: Path) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# orbax checkpoints (phase 16)
+# ---------------------------------------------------------------------------
+
+#: a tiny convnet run whose orbax checkpoint the JAX package wrote, with the
+#: same state in msgpack beside it (tests/make_torch_orbax_fixture.py)
+ORBAX_FIXTURE = REPO / "tests" / "fixtures" / "torch_orbax_run"
+ORBAX_STEPS = 16  # the first run's steps; --resume takes it to twice this
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    """The array leaves of a checkpoint's tree by path (a list's items by
+    index, as a state dict keys them), as CPU tensors."""
+    out = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree))
+    for key, value in items:
+        name = f"{prefix}/{key}"
+        if isinstance(value, (dict, list)):
+            out.update(_flat_leaves(value, name))
+        elif value is not None:
+            out[name] = torch.as_tensor(value).cpu()
+    return out
+
+
+def _same_leaves(got: dict, want: dict, what: str) -> int:
+    """Every leaf of ``got`` equal to ``want``'s, dtype and bits; returns
+    the number of leaves."""
+    got, want = _flat_leaves(got), _flat_leaves(want)
+    bad = sorted(set(got) ^ set(want)) + [
+        k for k in sorted(set(got) & set(want))
+        if got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{what}: leaves differ: {bad[:5]}")
+    return len(got)
+
+
+def _orbax_fixture_path(device: torch.device, card: str) -> dict:
+    """Part (a): the JAX-written fixture read without JAX, tensorstore or
+    zstandard: every leaf against its msgpack twin bit for bit, then served
+    with ``from_workdir`` against serving the twin."""
+    from meanflow_audio_codec_torch.training import checkpoints
+    from meanflow_audio_codec_torch.training.trainer import load_flow_state
+
+    config = load_config(ORBAX_FIXTURE / "config.json")
+    orbax_dir = checkpoints.find_latest_checkpoint(
+        ORBAX_FIXTURE / "checkpoints")
+    twin = ORBAX_FIXTURE / "twin" / orbax_dir.name.replace(".orbax",
+                                                           ".msgpack")
+    state, _ = load_flow_state(twin, config, device=device)
+    tree = checkpoints.read_checkpoint_orbax(orbax_dir, state)
+    want = checkpoints.read_checkpoint(twin)
+    for t in (tree, want):
+        del t["ema_decay"]
+    n = _same_leaves(tree, want, f"{orbax_dir.name} against its twin")
+    clip = synth_audio(2, CLIP_LEN, torch.Generator(device).manual_seed(30),
+                       device)
+    zero_launches()
+    codec = AudioCodec.from_workdir(ORBAX_FIXTURE, device=device)
+    out = codec.roundtrip(clip, generator=torch.Generator(device)
+                          .manual_seed(31))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    twin_codec = AudioCodec.from_checkpoint(twin, config, device=device)
+    ref = twin_codec.roundtrip(clip, generator=torch.Generator(device)
+                               .manual_seed(31))
+    if not torch.isfinite(out).all() or not torch.equal(out, ref):
+        raise AssertionError("serving the JAX-written orbax run differs from "
+                             "serving its msgpack twin")
+    if launches["mdct_cuda"] == 0 or launches["imdct_cuda"] == 0:
+        raise AssertionError(f"orbax fixture serving launches {launches}")
+    print(f"orbax fixture: {orbax_dir.name} (written by the JAX package) "
+          f"read without JAX/tensorstore/zstandard, {n} leaves == "
+          f"{twin.name} bit for bit; from_workdir round trip of 2 x "
+          f"{CLIP_LEN} == the twin's, shape {tuple(out.shape)}; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _orbax_trainer_path(scratch: Path, writes: list) -> dict:
+    """Part (b): the trainer at full frontier-v2 width writing orbax
+    checkpoints: ``ORBAX_STEPS`` steps with a checkpoint at the end, then
+    ``--resume`` to twice that; each orbax write is timed and followed by a
+    msgpack checkpoint of the same state (``writes``)."""
+    from meanflow_audio_codec_torch.training import checkpoints
+
+    config = json.loads(CONFIG.read_text())
+    config["training"]["checkpoint_format"] = "orbax"
+    config_path = scratch / "frontier_v2_orbax.json"
+    config_path.write_text(json.dumps(config))
+    workdir = scratch / "orbax_run"
+    args = ["--config", str(config_path), "--steps-per-call",
+            str(ORBAX_STEPS), "--checkpoint-step", str(ORBAX_STEPS),
+            "--sample-every", str(2 * ORBAX_STEPS),
+            "--max-checkpoints-to-keep", "2", "--device-pool-clips", "64",
+            "--workdir", str(workdir)]
+    real = checkpoints.save_checkpoint_orbax
+
+    def timed(state, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = real(state, path)
+        orbax_s = time.perf_counter() - t0
+        twin = scratch / path.name.replace(".orbax", ".msgpack")
+        t0 = time.perf_counter()
+        checkpoints.save_checkpoint(state, twin)
+        writes.append((path, orbax_s, twin, time.perf_counter() - t0))
+        return path
+
+    checkpoints.save_checkpoint_orbax = timed
+    zero_launches()
+    try:
+        for extra in (["--n-steps", str(ORBAX_STEPS)],
+                      ["--resume", "--n-steps", str(2 * ORBAX_STEPS)]):
+            if train_cli.main(args + extra) != 0:
+                raise AssertionError(f"train main {extra} failed")
+    finally:
+        checkpoints.save_checkpoint_orbax = real
+    launches = read_launches()
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    starts = [i for i, r in enumerate(records) if r.get("event") == "start"]
+    steps = [r["step"] for r in records if "event" not in r]
+    if (len(starts) != 2 or steps != list(range(2 * ORBAX_STEPS))
+            or records[starts[1] + 1]["step"] != ORBAX_STEPS):
+        raise AssertionError(f"orbax trainer log: starts {starts}, steps "
+                             f"{steps}")
+    ckpt = workdir / "checkpoints"
+    for step in (ORBAX_STEPS, 2 * ORBAX_STEPS):
+        sidecar = json.loads((ckpt / f"step_{step:05d}.metadata.json")
+                             .read_text())
+        if not (ckpt / f"step_{step:05d}.orbax").is_dir() or sidecar[
+                "format"] != "orbax":
+            raise AssertionError(f"step {step}: no orbax directory or a "
+                                 f"sidecar of format {sidecar['format']!r}")
+    if launches["mdct_cuda"] < 2 * ORBAX_STEPS or launches["imdct_cuda"] < 1:
+        raise AssertionError(f"orbax trainer launches {launches}")
+    print(f"orbax trainer: frontier_v2 with checkpoint_format orbax, "
+          f"{ORBAX_STEPS} steps then --resume (resumed at step "
+          f"{ORBAX_STEPS}) to {2 * ORBAX_STEPS}; "
+          f"{sorted(p.name for p in ckpt.iterdir())}; launches {launches}",
+          flush=True)
+    return launches
+
+
+def _orbax_reads(card: str, writes: list) -> Path:
+    """Each orbax checkpoint's leaves against the msgpack checkpoint of the
+    same state, with the seconds and rates of every write and read; returns
+    the newest msgpack twin."""
+    from meanflow_audio_codec_torch.training import checkpoints
+    from meanflow_audio_codec_torch.training.orbax import pytree
+
+    for path, orbax_w, twin, msgpack_w in writes:
+        for fmt, size, w in (("orbax", _dir_bytes(path), orbax_w),
+                             ("msgpack", twin.stat().st_size, msgpack_w)):
+            print(f"[{card}] checkpoint write, {fmt}, {path.stem}: {size} "
+                  f"bytes in {w:.3f} s ({size / 1e6 / w:.1f} MB/s)",
+                  flush=True)
+    # the trainer writes its last checkpoint twice (the checkpoint step and
+    # the run's end); each is read once
+    for path, twin in dict((p, t) for p, _, t, _ in writes).items():
+        t0 = time.perf_counter()
+        restored = pytree.restore_pytree(path)
+        orbax_r = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = checkpoints.read_checkpoint(twin)
+        msgpack_r = time.perf_counter() - t0
+        del want["ema_decay"]  # kept by the train state, not by orbax
+        n = _same_leaves(restored, want, f"{path.name} against msgpack")
+        for fmt, size, r in (("orbax", _dir_bytes(path), orbax_r),
+                             ("msgpack", twin.stat().st_size, msgpack_r)):
+            print(f"[{card}] checkpoint read, {fmt}, {path.stem} ({n} "
+                  f"leaves == the other format's, {FRONTIER_PARAMS} params "
+                  f"x 4 f32 arrays): {size} bytes in {r:.3f} s "
+                  f"({size / 1e6 / r:.1f} MB/s)", flush=True)
+    return writes[-1][2]
+
+
+def _orbax_serving_path(device: torch.device, card: str, workdir: Path,
+                        twin: Path) -> dict:
+    """Part (c): ``from_workdir`` serves the resumed run from its newest
+    orbax directory; a 10 s clip's stored bytes and decoded audio equal
+    those served from the msgpack twin of the same state."""
+    config = load_config(workdir / "config.json")
+    clip = synth_audio(1, 10 * SAMPLE_RATE,
+                       torch.Generator(device).manual_seed(32), device)
+    zero_launches()
+    codec = AudioCodec.from_workdir(workdir, device=device)
+    data = codec.encode_bytes(clip)
+    out = codec.decode_bytes(data, generator=torch.Generator(device)
+                             .manual_seed(33))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ref_codec = AudioCodec.from_checkpoint(twin, config, device=device)
+    ref_data = ref_codec.encode_bytes(clip)
+    ref = ref_codec.decode_bytes(ref_data, generator=torch.Generator(device)
+                                 .manual_seed(33))
+    if data != ref_data or not torch.equal(out, ref):
+        raise AssertionError("serving the orbax run differs from serving its "
+                             "msgpack twin")
+    if not torch.isfinite(out).all():
+        raise AssertionError("orbax serving: non-finite output")
+    if launches["mdct_cuda"] == 0 or launches["imdct_cuda"] == 0:
+        raise AssertionError(f"orbax serving launches {launches}")
+    print(f"[{card}] orbax serving: from_workdir on the resumed run, 10 s "
+          f"clip, {len(data)} bytes == the msgpack twin's, decoded audio "
+          f"equal, shape {tuple(out.shape)}; launches {launches}", flush=True)
+    return launches
+
+
+def orbax_phase(device: torch.device, card: str, scratch: Path) -> dict:
+    """Phase 16: orbax checkpoints on the card's host without JAX,
+    tensorstore or zstandard. Returns the launch counts per path."""
+    t0 = time.perf_counter()
+    paths = {"orbax_fixture": _orbax_fixture_path(device, card)}
+    t1 = time.perf_counter()
+    writes: list = []
+    paths["orbax_trainer"] = _orbax_trainer_path(scratch, writes)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    twin = _orbax_reads(card, writes)
+    t3 = time.perf_counter()
+    paths["orbax_serving"] = _orbax_serving_path(
+        device, card, scratch / "orbax_run", twin)
+    torch.cuda.empty_cache()
+    print(f"[{card}] orbax phase: fixture {t1 - t0:.1f} s, trainer "
+          f"{t2 - t1:.1f} s, reads {t3 - t2:.1f} s, serving "
+          f"{time.perf_counter() - t3:.1f} s", flush=True)
+    return paths
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -3609,6 +3859,9 @@ def main() -> int:
     parser.add_argument("--parallel-only", action="store_true",
                         help="the build, then phase 15 (data-parallel "
                              "training) alone")
+    parser.add_argument("--orbax-only", action="store_true",
+                        help="the build, then phase 16 (orbax checkpoints) "
+                             "alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3651,6 +3904,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps({"parallel": parallel_phase(device, card,
                                                          Path(tmp))}),
+                  flush=True)
+        return 0
+    if args.orbax_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"orbax": orbax_phase(device, card, Path(tmp))}),
                   flush=True)
         return 0
     clock = [time.perf_counter()]
@@ -3761,6 +4019,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(parallel_phase(device, card, Path(tmp)))
     lap("parallel")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(orbax_phase(device, card, Path(tmp)))
+    lap("orbax")
 
     results["gelu_grn_cuda"]["launches_by_kernel"] = {
         variant: sum(p["gelu_grn_variants"][variant] for p in paths.values())

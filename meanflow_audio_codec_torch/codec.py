@@ -86,11 +86,11 @@ class AudioCodec:
                         device: str | torch.device = "cuda",
                         quantized: bool = False) -> "AudioCodec":
         """Serve a checkpoint: the EMA parameters when it holds them, else
-        the live ones (a full ``step_N.msgpack`` or a
-        ``serving_step_N.msgpack``). ``quantized`` serves the same
-        checkpoint through the dynamic W8A8 int8 decoder (``ops/quant.py``;
-        the parameters are unchanged, the encoder stays in the compute
-        dtype)."""
+        the live ones (a full ``step_N.msgpack``, a ``step_N.orbax``
+        directory or a ``serving_step_N.msgpack``). ``quantized`` serves
+        the same checkpoint through the dynamic W8A8 int8 decoder
+        (``ops/quant.py``; the parameters are unchanged, the encoder stays
+        in the compute dtype)."""
         if quantized:
             config = with_quantized_decoder(config)
         noise_dim = effective_noise_dimension(config)

@@ -5,8 +5,9 @@ its own into ``build/lib<name>-<digest>.so`` inside the package, where the
 digest covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused. The
 host C++ sources the port binds (``HOST_SOURCES``: the repository's
-``native/entropy.cpp``, the rANS coder, and ``native/dataloader.cpp``, the
-audio loader) compile the same way with g++, each with its own flags
+``native/entropy.cpp``, the rANS coder, ``native/dataloader.cpp``, the
+audio loader, and the port's ``csrc/zstd.cpp``, the zstd decoder that
+orbax checkpoints need) compile the same way with g++, each with its own flags
 (``host_flags``), the digest covering the source and those flags. Sources
 build in parallel, one compiler each, at first use; nothing is compiled
 when a module is imported.
@@ -28,9 +29,10 @@ BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("mdct", "imdct", "stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: host C++ sources by library name (built with g++, never edited here)
+#: host C++ sources by library name (built with g++)
 HOST_SOURCES = {"entropy": PACKAGE_DIR.parent / "native" / "entropy.cpp",
-                "dataloader": PACKAGE_DIR.parent / "native" / "dataloader.cpp"}
+                "dataloader": PACKAGE_DIR.parent / "native" / "dataloader.cpp",
+                "zstd": CSRC_DIR / "zstd.cpp"}
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 #: flags a host source takes beyond ``GXX_FLAGS`` (the loader's threads)
 HOST_EXTRA_FLAGS = {"dataloader": ("-pthread",)}

@@ -1,12 +1,17 @@
-"""Checkpoints in the JAX package's msgpack format, with metadata sidecars,
-validation, retention and resume.
+"""Checkpoints in the JAX package's two formats, msgpack and orbax, with
+metadata sidecars, validation, retention and resume.
 
-Counterpart of the msgpack path of
-``meanflow_audio_codec_tpu/training/checkpoints.py``, with the same on-disk
-contract, so that either package resumes from the other's files:
+Counterpart of ``meanflow_audio_codec_tpu/training/checkpoints.py``, with
+the same on-disk contract, so that either package resumes from the other's
+files:
 
   * ``checkpoints/step_{N:05d}.msgpack``: the whole train state as the flax
     state dict of the JAX ``TrainState`` (``weights.train_state_to_flax``);
+  * ``checkpoints/step_{N:05d}.orbax/`` (``checkpoint_format: "orbax"``):
+    the directory orbax's ``PyTreeCheckpointer`` writes of the JAX state's
+    ``step``, ``params``, ``opt_state`` (optax's tuples as lists, its empty
+    states as None) and ``ema_params``, read and written by
+    ``training/orbax`` without orbax;
   * ``step_{N:05d}.metadata.json``: step, timestamp, git commit, config
     SHA-256, torch version, device name, byte size, parameter count and the
     Flax parameter-shape map;
@@ -19,8 +24,7 @@ contract, so that either package resumes from the other's files:
 Full checkpoints are matched by an anchored name pattern, so a
 ``serving_step_*`` file is never taken for one. A sharded run passes its
 full state (``ShardedTrainState.full()``) and writes from rank 0 alone, so
-the files are the same. The one format not ported is ``orbax``
-(``checkpoint_format: "orbax"`` raises, naming ROADMAP §1).
+the files are the same in either format.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 import hashlib
 import json
 import re
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -37,17 +42,22 @@ import numpy as np
 import torch
 
 from meanflow_audio_codec_torch import serialization, weights
+from meanflow_audio_codec_torch.training.orbax import pytree
 
-CHECKPOINT_RE = re.compile(r"^step_(\d+)\.msgpack$")
+CHECKPOINT_RE = re.compile(r"^step_(\d+)\.(?:msgpack|orbax)$")
 SERVING_RE = re.compile(r"^serving_step_(\d+)\.msgpack$")
 MIN_CHECKPOINT_BYTES = 100
+FORMATS = ("msgpack", "orbax")
 
 
-def check_format(fmt: str | None) -> None:
-    if (fmt or "msgpack") != "msgpack":
-        raise NotImplementedError(
-            f"checkpoint_format {fmt!r} is not ported yet (ROADMAP §1, the "
-            "orbax format: the port writes msgpack checkpoints only)")
+def check_format(fmt: str | None) -> str:
+    """The checkpoint format ``fmt`` names (None: msgpack); raises
+    ``ValueError`` for another name."""
+    fmt = fmt or "msgpack"
+    if fmt not in FORMATS:
+        raise ValueError(f"checkpoint_format {fmt!r}: expected one of "
+                         f"{FORMATS}")
+    return fmt
 
 
 # ============================================================================
@@ -115,6 +125,97 @@ def load_params_only(path: Path | str, model: torch.nn.Module
         raise ValueError(f"params in {path} do not match the model: "
                          f"{sorted(set(got.items()) ^ set(want.items()))}")
     return params
+
+
+# ---------------------------------------------------------------------------
+# Orbax directories
+# ---------------------------------------------------------------------------
+
+
+def _state_arrays(state) -> dict:
+    """The tree JAX's ``_state_arrays`` saves, as flax state-dict nodes:
+    step, params, opt_state and ema_params (no ema_decay)."""
+    tree = weights.train_state_to_flax(state)
+    del tree["ema_decay"]
+    return tree
+
+
+def _optax_tree(node):
+    """An optax state in the form orbax saves it: its tuples ("0", "1"...
+    keyed dicts) as lists, its empty states as None."""
+    if isinstance(node, dict):
+        if not node:
+            return None
+        if all(k.isdigit() for k in node) and sorted(node, key=int) == [
+                str(i) for i in range(len(node))]:
+            return [_optax_tree(node[str(i)]) for i in range(len(node))]
+        return {k: _optax_tree(v) for k, v in node.items()}
+    return node
+
+
+def _array_leaves(tree):
+    """The array leaves of ``tree`` in JAX's flattening order (dict keys
+    sorted, sequences in order, None and empty containers dropped)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _array_leaves(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _array_leaves(value)
+    elif tree is not None:
+        yield tree
+
+
+def _unflatten(template, leaves):
+    """``template`` with its array leaves replaced, in order, from
+    ``leaves``."""
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+    if template is None:
+        return None
+    return next(leaves)
+
+
+def save_checkpoint_orbax(state, path: Path | str) -> Path:
+    """Write the train state as an orbax directory checkpoint, replacing
+    one that is there."""
+    tree = _state_arrays(state)
+    tree["opt_state"] = _optax_tree(tree["opt_state"])
+    return pytree.save_pytree(path, tree)
+
+
+def read_checkpoint_orbax(path: Path | str, state) -> dict:
+    """The tree of an orbax checkpoint, as ``weights.train_state_to_flax``
+    gives it for ``state`` (with ``state``'s ``ema_decay``). The restored
+    leaves map onto the state's in flattening order, as the JAX package's
+    ``load_checkpoint_orbax`` maps them; raises ``ValueError`` when their
+    number or a shape differs."""
+    leaves = list(_array_leaves(pytree.restore_pytree(path)))
+    target = _state_arrays(state)
+    want = list(_array_leaves(target))
+    if len(leaves) != len(want):
+        raise ValueError(f"checkpoint has {len(leaves)} leaves, the train "
+                         f"state expects {len(want)}")
+    for got, expected in zip(leaves, want):
+        if tuple(np.shape(got)) != tuple(np.shape(expected)):
+            raise ValueError(f"checkpoint leaf shape {tuple(np.shape(got))}"
+                             f" != train state's {tuple(np.shape(expected))}")
+    tree = _unflatten(target, iter(leaves))
+    tree["ema_decay"] = np.asarray(state.ema_decay or 0.999)
+    return tree
+
+
+def load_checkpoint_orbax(path: Path | str, state):
+    """Load an orbax checkpoint into ``state`` (keeping its ``ema_decay``);
+    returns ``state``."""
+    return restore_train_state(read_checkpoint_orbax(path, state), state)
+
+
+def orbax_checkpoint_has_ema(path: Path | str) -> bool:
+    """True when an orbax checkpoint stores an EMA copy, read from its
+    metadata alone (a run without EMA saves ``ema_params`` None)."""
+    tree = pytree.pytree_metadata(path)
+    return isinstance(tree, dict) and tree.get("ema_params") is not None
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +309,12 @@ def device_name(device: torch.device) -> str:
     return device.type
 
 
+def _checkpoint_bytes(path: Path) -> int | None:
+    if path.is_dir():
+        return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    return path.stat().st_size if path.exists() else None
+
+
 def checkpoint_metadata(state, path: Path, config: Any | None = None) -> dict:
     return {
         "step": int(state.step),
@@ -217,7 +324,7 @@ def checkpoint_metadata(state, path: Path, config: Any | None = None) -> dict:
         "config_hash": config_hash(config) if config is not None else None,
         "torch_version": torch.__version__,
         "platform": device_name(state.device),
-        "checkpoint_bytes": path.stat().st_size if path.exists() else None,
+        "checkpoint_bytes": _checkpoint_bytes(path),
         "param_count": count_params(state),
         "param_shapes": _param_shapes(state),
     }
@@ -227,15 +334,20 @@ def save_checkpoint_with_metadata(state, checkpoint_dir: Path | str,
                                   step: int | None = None,
                                   config: Any | None = None,
                                   fmt: str | None = None) -> Path:
-    """Write ``step_{N:05d}.msgpack`` and its metadata sidecar."""
-    check_format(fmt)
+    """Write ``step_{N:05d}.msgpack`` (or the ``.orbax`` directory) and its
+    metadata sidecar."""
+    fmt = check_format(fmt)
     checkpoint_dir = Path(checkpoint_dir)
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
     step = int(state.step) if step is None else int(step)
-    path = save_checkpoint(state, checkpoint_dir / f"step_{step:05d}.msgpack")
+    path = checkpoint_dir / f"step_{step:05d}.{fmt}"
+    if fmt == "orbax":
+        save_checkpoint_orbax(state, path)
+    else:
+        save_checkpoint(state, path)
     meta = checkpoint_metadata(state, path, config)
     meta["step"] = step
-    meta["format"] = "msgpack"
+    meta["format"] = fmt
     sidecar = checkpoint_dir / f"step_{step:05d}.metadata.json"
     sidecar.write_text(json.dumps(meta, indent=2))
     return path
@@ -247,10 +359,14 @@ def save_checkpoint_with_metadata(state, checkpoint_dir: Path | str,
 
 
 def validate_checkpoint_file(path: Path | str) -> tuple[bool, str]:
-    """Cheap integrity checks: exists, minimum size, msgpack parse."""
+    """Cheap integrity checks: exists, minimum size, msgpack parse (an
+    orbax directory: not empty)."""
     path = Path(path)
     if not path.exists():
         return False, "file does not exist"
+    if path.is_dir():
+        has_payload = any(path.rglob("*"))
+        return has_payload, "ok" if has_payload else "empty orbax dir"
     if path.stat().st_size < MIN_CHECKPOINT_BYTES:
         return False, f"file too small ({path.stat().st_size} bytes)"
     try:
@@ -262,14 +378,21 @@ def validate_checkpoint_file(path: Path | str) -> tuple[bool, str]:
 
 def validate_checkpoint_structure(path: Path | str,
                                   state) -> tuple[bool, str]:
-    """Deep check: the checkpoint's tree matches ``state`` leaf for leaf."""
+    """Deep check: the checkpoint's tree matches ``state`` leaf for leaf
+    (an orbax directory is read whole, every chunk decoded)."""
     path = Path(path)
     if not path.exists():
         return False, "file does not exist"
-    if path.stat().st_size < MIN_CHECKPOINT_BYTES:
+    if path.is_dir():
+        ok, reason = validate_checkpoint_file(path)
+        if not ok:
+            return ok, reason
+    elif path.stat().st_size < MIN_CHECKPOINT_BYTES:
         return False, f"file too small ({path.stat().st_size} bytes)"
     try:
-        weights.train_state_from_flax(read_checkpoint(path), state)
+        tree = (read_checkpoint_orbax(path, state) if path.is_dir()
+                else read_checkpoint(path))
+        weights.train_state_from_flax(tree, state)
     except (ValueError, TypeError, KeyError, RuntimeError,
             UnicodeDecodeError) as exc:
         return False, f"structure mismatch: {exc}"
@@ -279,7 +402,9 @@ def validate_checkpoint_structure(path: Path | str,
 def validate_config_compatibility(checkpoint_path: Path | str,
                                   config: Any) -> tuple[bool, str]:
     """Compare the sidecar's stored config hash with ``config``'s."""
-    sidecar = Path(str(checkpoint_path).replace(".msgpack", ".metadata.json"))
+    checkpoint_path = Path(checkpoint_path)
+    stem = checkpoint_path.name.rsplit(".", 1)[0]
+    sidecar = checkpoint_path.parent / f"{stem}.metadata.json"
     if not sidecar.exists():
         return True, "no metadata sidecar; skipping compatibility check"
     try:
@@ -303,11 +428,13 @@ def get_checkpoint_step(path: Path | str) -> int | None:
 
 
 def list_checkpoints(checkpoint_dir: Path | str) -> list[Path]:
-    """Full checkpoints (``step_N.msgpack``), sorted by step."""
+    """Full checkpoints (``step_N.msgpack`` files and ``step_N.orbax``
+    directories), sorted by step."""
     checkpoint_dir = Path(checkpoint_dir)
     if not checkpoint_dir.exists():
         return []
-    found = [p for p in checkpoint_dir.glob("step_*.msgpack")
+    found = [p for pattern in ("step_*.msgpack", "step_*.orbax")
+             for p in checkpoint_dir.glob(pattern)
              if get_checkpoint_step(p) is not None]
     return sorted(found, key=get_checkpoint_step)
 
@@ -354,9 +481,12 @@ def cleanup_old_checkpoints(checkpoint_dir: Path | str,
             break
         if path in protected:
             continue
-        path.unlink(missing_ok=True)
-        (path.parent / f"step_{get_checkpoint_step(path):05d}.metadata.json"
-         ).unlink(missing_ok=True)
+        if path.is_dir():
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            path.unlink(missing_ok=True)
+        stem = path.name.rsplit(".", 1)[0]
+        (path.parent / f"{stem}.metadata.json").unlink(missing_ok=True)
         deleted.append(path)
         excess -= 1
     return deleted
@@ -369,5 +499,8 @@ def load_checkpoint_and_resume(checkpoint_dir: Path | str, state
     path = find_valid_checkpoint(checkpoint_dir, state)
     if path is None:
         return None
-    load_checkpoint(path, state)
+    if path.is_dir():
+        load_checkpoint_orbax(path, state)
+    else:
+        load_checkpoint(path, state)
     return state, get_checkpoint_step(path)

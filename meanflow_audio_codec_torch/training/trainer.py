@@ -17,8 +17,9 @@ layout; ``data/mnist.py``), whose samples are written as a PNG grid.
 Every objective of the JAX package trains (autoencoder, flow matching,
 mean flow, improved mean flow; the learned loss weighting, whose polynomial
 the factory adds to the model's parameters; latent QAT), and ``tpu.remat`` recomputes the
-loss in the backward pass. What the port's trainer does not take yet raises,
-naming the ROADMAP item: orbax checkpoints. Noise, t and r come from one
+loss in the backward pass. Checkpoints are written in the configured
+``checkpoint_format`` (msgpack files or orbax directories), and a resume
+takes the newest valid checkpoint of either format. Noise, t and r come from one
 ``torch.Generator`` on the state's device seeded with ``config.seed``; like
 the JAX key, it is not saved, so a resumed run draws anew from the seed.
 
@@ -140,8 +141,8 @@ def effective_noise_dimension(config: CodecConfig) -> int:
 
 def _check_ported(config: CodecConfig) -> None:
     """Raise, before anything is written, on a config the trainer cannot
-    run: an unknown tokenization or objective, and what the port's trainer
-    does not take yet."""
+    run: an unknown tokenization, objective or checkpoint format, and the
+    serving-only int8 switch."""
     create_tokenization_strategy(config.tokenization_strategy,
                                  config.tokenization_config)
     create_loss_strategy(config)
@@ -514,9 +515,10 @@ def load_flow_state(checkpoint_path: Path | str, config: CodecConfig,
                     device: str | torch.device = "cuda"
                     ) -> tuple[TrainState, torch.nn.Module]:
     """Rebuild the model and train state and load a checkpoint into them,
-    for evaluation: a full ``step_N.msgpack`` (with its EMA when it has one)
-    or a ``serving_step_N.msgpack`` (its parameters in both the live and the
-    EMA slot; optimiser state fresh)."""
+    for evaluation: a full ``step_N.msgpack`` or ``step_N.orbax`` directory
+    (with its EMA when it has one) or a ``serving_step_N.msgpack`` (its
+    parameters in both the live and the EMA slot; optimiser state
+    fresh)."""
     noise_dim = effective_noise_dimension(config)
     if noise_dim != config.noise_dimension:
         config = dataclasses.replace(config, noise_dimension=noise_dim)
@@ -530,9 +532,15 @@ def load_flow_state(checkpoint_path: Path | str, config: CodecConfig,
         state = TrainState(model, optimizer, ema_decay, device=device)
         state.step = step
         return state, state.model
-    tree = checkpoints.read_checkpoint(checkpoint_path)
     # pick the template by inspecting the checkpoint: runs without EMA store
-    # ema_params None
+    # ema_params None (an orbax directory says so in its metadata)
+    if Path(checkpoint_path).is_dir():
+        has_ema = checkpoints.orbax_checkpoint_has_ema(checkpoint_path)
+        state = TrainState(model, optimizer, ema_decay if has_ema else None,
+                           device=device)
+        return (checkpoints.load_checkpoint_orbax(checkpoint_path, state),
+                state.model)
+    tree = checkpoints.read_checkpoint(checkpoint_path)
     has_ema = isinstance(tree, dict) and tree.get("ema_params") is not None
     state = TrainState(model, optimizer, ema_decay if has_ema else None,
                        device=device)

@@ -378,7 +378,28 @@ def test_structure_mismatch_is_refused(tmp_path):
         checkpoints.load_checkpoint(path, _port_state(ema=False))
 
 
-def test_orbax_format_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkpoints.save_checkpoint_with_metadata(_port_state(), tmp_path,
-                                                  fmt="orbax")
+@pytest.mark.parametrize("clip,ema,schedule", [
+    (True, True, False), (False, True, False), (True, False, False),
+    (True, True, True)], ids=["clip-ema", "no-clip", "no-ema", "cosine"])
+def test_orbax_checkpoint_saves_and_loads(tmp_path, clip, ema, schedule):
+    """An orbax directory of the port's state loads back bit for bit (JAX's
+    loaders on it and the port's on JAX's: tests/test_torch_orbax.py)."""
+    state = _port_state(clip, ema, schedule=schedule)
+    path = checkpoints.save_checkpoint_with_metadata(
+        state, tmp_path, step=5, fmt="orbax",
+        config=config_from_dict(_config(clip, ema, schedule)))
+    assert path == tmp_path / "step_00005.orbax" and path.is_dir()
+    meta = json.loads((tmp_path / "step_00005.metadata.json").read_text())
+    assert meta["format"] == "orbax" and meta["checkpoint_bytes"] == sum(
+        f.stat().st_size for f in path.rglob("*") if f.is_file())
+    assert checkpoints.orbax_checkpoint_has_ema(path) == ema
+    target = _port_state(clip, ema, seed=3, schedule=schedule)
+    target.step = 0
+    checkpoints.load_checkpoint_orbax(path, target)
+    assert target.step == 5
+    _assert_trees_equal(weights.train_state_to_flax(target),
+                        weights.train_state_to_flax(state))
+    assert checkpoints.validate_checkpoint_structure(path, target) == (
+        True, "ok")
+    with pytest.raises(ValueError, match="leaves"):
+        checkpoints.load_checkpoint_orbax(path, _port_state(clip, not ema))

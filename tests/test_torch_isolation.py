@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and chip_smoke.py) loads no
-JAX, Flax, Optax or msgpack module and nothing of the JAX package, and no
-file of the port names one in an import (the codec CLI included). The
+JAX, Flax, Optax, msgpack, orbax, tensorstore or zstandard module and
+nothing of the JAX package, and no file of the port names one in an import
+(the codec CLI included). The
 kernel wrappers, ``ops/_build.py`` and the stored format's coder hold no
 ``try``: a CUDA tensor goes to the kernel or raises, and a coder that does
 not build raises rather than storing raw codes."""
@@ -14,8 +15,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "meanflow_audio_codec_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
-             "meanflow_audio_codec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax",
+             "tensorstore", "zstandard", "meanflow_audio_codec_tpu")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -86,6 +87,18 @@ def test_the_parallel_layer_and_run_tools_are_checked():
                      "parallel/sharded_state.py"} <= names
 
 
+def test_the_orbax_modules_are_checked():
+    """The orbax checkpoint layer (the zstd binding, OCDBT, zarr and the
+    pytree layout) is among the files the tests above walk, and its native
+    decoder is one of the sources the builder compiles."""
+    from meanflow_audio_codec_torch.ops import _build
+
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {f"training/orbax/{m}.py" for m in ("zstd", "ocdbt", "zarr",
+                                               "pytree")} <= names
+    assert _build.HOST_SOURCES["zstd"] == PORT / "csrc" / "zstd.cpp"
+
+
 _CLI_PROBE = """
 import runpy, sys
 sys.argv = ["codec_cli", "info", {path!r}]
@@ -114,7 +127,8 @@ def test_the_codec_cli_runs_without_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["ops/mdct_cuda.py", "ops/imdct_cuda.py",
                                   "ops/stage_cuda.py", "ops/_build.py",
-                                  "ops/entropy.py", "ops/latent_quant.py"])
+                                  "ops/entropy.py", "ops/latent_quant.py",
+                                  "training/orbax/zstd.py"])
 def test_kernel_paths_have_no_fallback_try(name):
     tree = ast.parse((PORT / name).read_text())
     assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))

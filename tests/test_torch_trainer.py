@@ -375,10 +375,9 @@ def test_geometry_helpers():
     ("method", {"loss_strategy": "diffusion"}, ValueError),
     # a mesh the process group cannot hold (4 data ranks in a group of 1)
     ("tpu", {"mesh_data": 4}, ValueError),
-    ("training", {"checkpoint_format": "orbax"}, NotImplementedError),
     ("model", {"architecture_options": {"channels": 16, "spatial": 4,
                                         "quantized": True}}, ValueError),
-], ids=["mnist", "objective", "devices", "orbax", "quantized"])
+], ids=["mnist", "objective", "devices", "quantized"])
 def test_train_flow_refuses_what_is_not_ported(tmp_path, section, values,
                                                error):
     # an unknown tokenization or objective is refused when the config is
@@ -390,16 +389,41 @@ def test_train_flow_refuses_what_is_not_ported(tmp_path, section, values,
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                                 world_size=1)
     try:
-        with pytest.raises(error) as info:
+        with pytest.raises(error):
             train_flow(config_from_dict(_tiny(tmp_path / "run",
                                               **{section: values})),
                        device="cpu")
     finally:
         if grouped:
             dist.destroy_process_group()
-    if error is NotImplementedError:
-        assert "ROADMAP" in str(info.value)
     assert not (tmp_path / "run").exists()
+
+
+def test_train_flow_writes_orbax_checkpoints(tmp_path):
+    """checkpoint_format orbax: the run writes step_N.orbax directories
+    with sidecars, keeps two of them, and resumes from the newest (the
+    cross-package checks: tests/test_torch_orbax.py)."""
+    workdir = tmp_path / "run"
+    data = _tiny(workdir, training={"checkpoint_format": "orbax"})
+    train_flow(config_from_dict(data), device="cpu")
+    names = _files(workdir / "checkpoints")
+    assert {n.split("/")[0] for n in names} == {
+        "step_00002.orbax", "step_00004.orbax", "step_00002.metadata.json",
+        "step_00004.metadata.json", "serving_step_00004.msgpack"}
+    sidecar = json.loads(
+        (workdir / "checkpoints" / "step_00004.metadata.json").read_text())
+    assert sidecar["format"] == "orbax" and sidecar["step"] == 4
+    state, _ = load_flow_state(workdir / "checkpoints" / "step_00004.orbax",
+                               config_from_dict(data), device="cpu")
+    assert state.step == 4 and state.ema is not None
+
+    data["base"]["n_steps"] = 6
+    train_flow(config_from_dict(data), resume=True, device="cpu")
+    records = read_log(workdir / "logs" / "train_log.jsonl")
+    starts = [i for i, r in enumerate(records) if r.get("event") == "start"]
+    assert [r["step"] for r in records[starts[-1] + 1:]] == [4, 5]
+    assert sorted(p.name for p in (workdir / "checkpoints").glob(
+        "step_*.orbax")) == ["step_00004.orbax", "step_00006.orbax"]
 
 
 def test_train_flow_asks_for_the_card(tmp_path, monkeypatch):
