@@ -6,6 +6,7 @@
     python3 chip_smoke.py --jvp-tape   # the build, then the tape probe
     python3 chip_smoke.py --parallel-only   # the build, then phase 15
     python3 chip_smoke.py --orbax-only   # the build, then phase 16
+    python3 chip_smoke.py --interfaces-only   # the build, then phase 17
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -38,7 +39,9 @@ and prints no result line):
      longer P); and time each kernel, its plain version and one library
      call (where one exists) with CUDA events, the MDCT and IMDCT at the
      10 s and train shapes too, and the two-pass GELU+GRN
-     at the train shape beside the single read;
+     at the train shape beside the single read; then the MDCT and IMDCT
+     kernels and their plain versions at the codec shape again, in turns
+     (7 rounds of one batch each, ``ms_alternating``);
   3a. gradients through the transform kernels: ``x.grad`` through
      ``mdct_cuda`` and ``imdct_cuda`` at the codec shape against the plain
      version's autograd (rtol 1e-4 / atol 1e-3), each backward launching
@@ -243,6 +246,20 @@ and prints no result line):
      MB/s of every write and read; and the resumed run served from its
      orbax directory, a 10 s clip's ``encode_bytes``/``decode_bytes``
      equal to those served from the msgpack twin;
+  17. (after 16) the JAX package's layer interfaces at frontier-v2 width:
+     ``load_config_from_json`` of configs/frontier_v2.json with section
+     access equal to flat access for every field; ``make_eval_step`` of
+     the config's ``ImprovedMeanFlowLoss`` with its MDCT token adapter on
+     16 clips x 32768 samples (float32, TF32 off), one MDCT launch a call,
+     the loss equal to ``objective.loss`` on the same tokens and draws (rel
+     <= 1e-5); ``train_step`` through ``compute_loss`` for 2 float32 steps
+     against ``make_train_step``'s with the same draws (losses, parameters
+     and first moments within relative L2 1e-5), with ``fused_stage`` off
+     and on (every stage kernel launched on the fused path, none on the
+     other); ``stage_fusable`` against the wrappers' launches at 4
+     geometries in bf16, f32 and f16; ``training/profiling.device_time``
+     of the bf16 codec's round trip on 4 clips x 32768 beside ``time_ms``
+     of the same call, 12 MDCT and 12 IMDCT launches;
   14. a ``{"kernels": [...]}`` line (launches per path: the transform
      layers' gradient, round trip, train, trainer, codec bytes, codec CLI,
      quantized serving, streaming, QAT trainer, eval_suite,
@@ -251,13 +268,14 @@ and prints no result line):
      family trainers, the two codecs' serving, the matrix, evaluate_all,
      the flag-driven trainer, each timing tool that launches a kernel,
      the one-rank trainer and the two ranks' step, the orbax fixture,
-     trainer and serving),
+     trainer and serving, phase 17's eval step, its two ``train_step``
+     paths and ``device_time``'s round trip),
      then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--parallel-only`` it builds, then runs phase 15 alone and prints
-its launches but no result line; ``--orbax-only`` does the same for phase
-16. With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
+its launches but no result line; ``--orbax-only`` and
+``--interfaces-only`` do the same for phases 16 and 17. With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
 copied into another checkout of the port, it times that checkout's kernels
 at the same shapes. With ``--jvp-tape`` it builds, then times bare bf16 iMF
@@ -296,7 +314,10 @@ import torch.nn.functional as F
 from meanflow_audio_codec_torch import serialization, weights
 from meanflow_audio_codec_torch import train as train_cli
 from meanflow_audio_codec_torch.codec import AudioCodec
-from meanflow_audio_codec_torch.configs import load_config
+from meanflow_audio_codec_torch.configs import (
+    load_config,
+    load_config_from_json,
+)
 from meanflow_audio_codec_torch.models.factories import create_flow_model
 from meanflow_audio_codec_torch.ops import _build
 from meanflow_audio_codec_torch.ops import imdct_cuda as imdct_cuda_mod
@@ -314,6 +335,7 @@ from meanflow_audio_codec_torch.ops.mdct import (
 )
 from meanflow_audio_codec_torch.ops.mdct_cuda import mdct_cuda
 from meanflow_audio_codec_torch.ops.sampling import sample, sample_dual_time
+from meanflow_audio_codec_torch.ops.stage import stage_fusable
 from meanflow_audio_codec_torch.ops.tokenize import (
     MDCTTokenization,
     create_tokenization_strategy,
@@ -322,14 +344,19 @@ from meanflow_audio_codec_torch.tools.benchmarks._timing import card_line
 from meanflow_audio_codec_torch.training import profiling
 from meanflow_audio_codec_torch.training.adapter import adapter_from_config
 from meanflow_audio_codec_torch.training.logging import read_log
-from meanflow_audio_codec_torch.training.objectives import create_loss_strategy
+from meanflow_audio_codec_torch.training.objectives import (
+    ImprovedMeanFlowLoss,
+    create_loss_strategy,
+)
 from meanflow_audio_codec_torch.training.optim import (
     TrainState,
     make_optimizer,
 )
 from meanflow_audio_codec_torch.training.train_step import (
+    make_eval_step,
     make_multi_step,
     make_train_step,
+    train_step,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -467,27 +494,49 @@ def read_launches() -> dict:
             "gelu_grn_variants": dict(stage_cuda.gelu_grn_variants)}
 
 
+def _timed_ms(fn, calls: int) -> float:
+    """Device milliseconds of ``calls`` calls of ``fn`` by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _calls_per_batch(fn, batch_ms: float) -> int:
+    """Calls of ``fn`` spanning about ``batch_ms``, found after a warm-up of
+    at least 20 ms of calls (the clocks leave idle)."""
+    calls, spent = 1, _timed_ms(fn, 1)
+    while spent < 20.0:
+        calls *= 2
+        spent = _timed_ms(fn, calls)
+    return max(1, math.ceil(batch_ms * calls / spent))
+
+
 def time_ms(fn, batches: int = 5, batch_ms: float = 5.0) -> float:
     """Device milliseconds per call of ``fn`` by CUDA events: the median over
     ``batches`` batches of calls, each spanning about ``batch_ms``, after a
     warm-up of at least 20 ms of calls (the clocks leave idle)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    calls = _calls_per_batch(fn, batch_ms)
+    return statistics.median(_timed_ms(fn, calls) / calls
+                             for _ in range(batches))
 
-    def run(calls: int) -> float:
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
 
-    calls, spent = 1, run(1)
-    while spent < 20.0:
-        calls *= 2
-        spent = run(calls)
-    calls = max(1, math.ceil(batch_ms * calls / spent))
-    return statistics.median(run(calls) / calls for _ in range(batches))
+def time_alternating(fns: dict, rounds: int = 7,
+                     batch_ms: float = 5.0) -> dict:
+    """:func:`time_ms` of several functions in turns: each round times one
+    batch of every function, one after the other, and each gets the median
+    over the rounds, so a clock or a neighbour that changes during the
+    measurement moves every function alike."""
+    calls = {name: _calls_per_batch(fn, batch_ms) for name, fn in fns.items()}
+    samples: dict = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            samples[name].append(_timed_ms(fn, calls[name]) / calls[name])
+    return {name: statistics.median(v) for name, v in samples.items()}
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -629,6 +678,26 @@ def check_kernels(device: torch.device) -> dict:
                   f"{res['library_ms' + suffix]:.4f} ms, bound "
                   f"{res['bound_ms' + suffix]:.4f} ms "
                   f"({res['bound_by' + suffix]})", flush=True)
+
+    # kernel and plain version in turns at the codec shape: PR 14's one
+    # reading of the IMDCT (0.0561 ms) sat 35% above every earlier one
+    cfg = MDCTConfig(512, 256)
+    nf = num_frames_for_length(32768, 512, 256)
+    x = torch.randn(8, 32768, generator=gen, device=device)
+    X = torch.randn(8, nf, 512, generator=gen, device=device)
+    turns = time_alternating({
+        "mdct_cuda": lambda: mdct_cuda(x, cfg),
+        "mdct plain": lambda: mdct(x, cfg),
+        "imdct_cuda": lambda: imdct_cuda(X, cfg),
+        "imdct plain": lambda: imdct(X, cfg)})
+    for name in ("mdct_cuda", "imdct_cuda"):
+        res = results[name]
+        res["ms_alternating"] = turns[name]
+        res["plain_ms_alternating"] = turns[name.replace("_cuda", " plain")]
+        print(f"{name} codec shape in turns with its plain version (7 "
+              f"rounds): kernel {res['ms_alternating']:.4f} ms, plain "
+              f"{res['plain_ms_alternating']:.4f} ms (alone above: kernel "
+              f"{res['ms']:.4f}, plain {res['plain_ms']:.4f})", flush=True)
 
     # the tokenizer's round trip through both kernels: W/hop = 2x the input
     tok = MDCTTokenization(512)
@@ -3819,6 +3888,221 @@ def orbax_phase(device: torch.device, card: str, scratch: Path) -> dict:
     return paths
 
 
+#: phase 17: the eval step's clips and the train steps compared per path
+INTERFACE_STEPS = 2
+#: stage_fusable against the wrappers: [B, spatial**2, channels] geometries
+FUSABLE_GEOMETRIES = [(8, 256), (8, 512), (4, 64), (3, 48)]
+
+
+def _sections_equal_flat(config) -> int:
+    """Section access equals flat access for every field of the sectioned
+    config (the flat ``workdir`` is a str, the flat dict fields ``{}`` when
+    unset); returns the number of fields."""
+    count = 0
+    for name in ("base", "model", "dataset_config", "method_config",
+                 "training", "tpu"):
+        section = getattr(config, name)
+        for f in dataclasses.fields(section):
+            value, flat = getattr(section, f.name), getattr(config, f.name)
+            if f.name == "workdir" and flat is not None:
+                flat = Path(flat)
+            if f.name in ("architecture_options", "tokenization_config"):
+                value = value or {}
+            if flat != value:
+                raise AssertionError(f"{name}.{f.name}: section {value!r}, "
+                                     f"flat {flat!r}")
+            count += 1
+    return count
+
+
+def _interface_train(device: torch.device, card: str, fused: bool,
+                     batch: torch.Tensor) -> dict:
+    """``train_step`` through ``compute_loss`` for INTERFACE_STEPS steps
+    against ``make_train_step`` with the same weights and draws (float32);
+    returns the launches of the ``train_step`` calls and their tokenize."""
+    # warmup off, so that both steps move the parameters
+    state, step = train_setup(device, fused=fused, precision="float32",
+                              warmup_steps=0)
+    twin, _ = train_setup(device, fused=fused, precision="float32",
+                          warmup_steps=0)
+    config = frontier_config("float32", fused)
+    objective = create_loss_strategy(config)
+    adapter = adapter_from_config(config, create_tokenization_strategy(
+        config.tokenization_strategy, config.tokenization_config))
+    gen = torch.Generator(device=device).manual_seed(17)
+    zero_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x = adapter.tokenize(batch)
+    draws, losses = [], []
+    for _ in range(INTERFACE_STEPS):
+        d = objective.draws_for(state, x, gen)
+        state, loss = train_step(state, None, x, objective, **d)
+        draws.append(d)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for d, loss in zip(draws, losses):
+        twin, metrics = step(twin, batch, **d)
+        rel = _rel_l2(loss, metrics["loss"])[1]
+        if not (math.isfinite(loss.item()) and rel <= TRAIN_REL_L2):
+            raise AssertionError(f"train_step loss {loss.item()} against "
+                                 f"{metrics['loss'].item()} (rel {rel})")
+    rel_params = _rel_l2(state._params, twin._params)[1]
+    rel_mu = _rel_l2(state._mu, twin._mu)[1]
+    flag = "on" if fused else "off"
+    print(f"[{card}] train_step (compute_loss) float32, fused_stage {flag}, "
+          f"{TRAIN_CLIPS} clips x {CLIP_LEN}: {INTERFACE_STEPS} steps in "
+          f"{seconds:.3f} s; losses "
+          f"{[round(v.item(), 6) for v in losses]} against make_train_step's, "
+          f"parameters rel_l2 {rel_params:.3e}, first moments rel_l2 "
+          f"{rel_mu:.3e} (<= {TRAIN_REL_L2}); launches {launches}",
+          flush=True)
+    if not (rel_params <= TRAIN_REL_L2 and rel_mu <= TRAIN_REL_L2):
+        raise AssertionError("train_step against make_train_step: params "
+                             f"{rel_params}, first moments {rel_mu}")
+    stage_kernels = tuple(stage_cuda.launches)
+    if launches["mdct_cuda"] != 1:
+        raise AssertionError(f"the tokenize launched {launches['mdct_cuda']} "
+                             "MDCTs, expected 1")
+    if fused and not all(launches[name] for name in stage_kernels):
+        raise AssertionError("a stage kernel was not launched by the fused "
+                             f"compute_loss: {launches}")
+    if not fused and any(launches[name] for name in stage_kernels):
+        raise AssertionError("a stage kernel ran with fused_stage off")
+    del state, twin, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _check_stage_fusable(device: torch.device, card: str) -> None:
+    """``stage_fusable`` against the wrappers: each fused op on a [2, S*S,
+    C] tensor of each dtype launches its kernel exactly where the rule
+    says (float16 raises the wrappers' TypeError, launching nothing)."""
+    if not stage_fusable(8, 256, torch.bfloat16):
+        raise AssertionError("stage_fusable(8, 256, bf16) is False")
+    checked = 0
+    gen = torch.Generator(device=device).manual_seed(18)
+    for spatial, channels in FUSABLE_GEOMETRIES:
+        for dtype in (torch.bfloat16, torch.float32, torch.float16):
+            x = torch.randn(2, spatial * spatial, channels, generator=gen,
+                            device=device).to(dtype)
+            x2 = torch.randn(2, spatial * spatial, 2 * channels,
+                             generator=gen, device=device).to(dtype)
+            film = torch.zeros(2, channels, device=device, dtype=dtype)
+            grn = torch.zeros(2 * channels, device=device)
+            zero_launches()
+            launched = True
+            try:
+                stage.fused_ln_film(x, film, film)
+                stage.fused_ln_norm(x)
+                stage.fused_gelu_grn(x2, grn, grn)
+            except TypeError:
+                launched = False
+            torch.cuda.synchronize()
+            counts = read_launches()
+            ran = [counts[name] for name in stage_cuda.launches]
+            if launched and ran != [1, 1, 1]:
+                raise AssertionError(f"{spatial}x{channels} {dtype}: {ran}")
+            if launched != stage_fusable(spatial, channels, dtype):
+                raise AssertionError(
+                    f"stage_fusable({spatial}, {channels}, {dtype}) is "
+                    f"{stage_fusable(spatial, channels, dtype)}, the wrappers "
+                    f"launched: {launched}")
+            checked += 1
+    print(f"[{card}] stage_fusable agrees with the wrappers' launches at "
+          f"{checked} geometries x dtypes ({FUSABLE_GEOMETRIES}; bf16, f32 "
+          "launch, f16 does not)", flush=True)
+
+
+def interfaces_phase(device: torch.device, card: str) -> dict:
+    """Phase 17: the JAX package's layer interfaces on the card at
+    frontier-v2 width. Returns the launch counts per path."""
+    t0 = time.perf_counter()
+    config = load_config_from_json(CONFIG)
+    fields = _sections_equal_flat(config)
+    print(f"load_config_from_json(frontier_v2.json): {type(config).__name__}"
+          f", section access equals flat access for {fields} fields",
+          flush=True)
+    gen = torch.Generator(device=device).manual_seed(19)
+    batch = synth_audio(TRAIN_CLIPS, CLIP_LEN, gen, device)
+    paths = {}
+
+    # the validation step: tokenize (the MDCT kernel) -> the iMF loss
+    state, _ = train_setup(device, fused=False, precision="float32")
+    f32 = frontier_config("float32", False)
+    objective = create_loss_strategy(f32)
+    if not isinstance(objective, ImprovedMeanFlowLoss):
+        raise AssertionError(f"frontier_v2's objective is {objective}")
+    adapter = adapter_from_config(f32, MDCTTokenization(
+        f32.tokenization_config["window_size"]))
+    evaluate = make_eval_step(objective, adapter)
+    with torch.no_grad():
+        x = adapter.tokenize(batch)
+    draws = objective.draws_for(state, x, gen)
+    evaluate(state, None, batch, **draws)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    outs = [evaluate(state, None, batch, **draws)
+            for _ in range(INTERFACE_STEPS)]
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t1) / INTERFACE_STEPS
+    paths["interfaces_eval"] = read_launches()
+    with torch.no_grad():
+        ref, _ = objective.loss(state.model, x, **draws)
+    rel = _rel_l2(outs[-1]["loss"], ref)[1]
+    print(f"[{card}] make_eval_step(ImprovedMeanFlowLoss, MDCT adapter) "
+          f"float32, TF32 off, {TRAIN_CLIPS} clips x {CLIP_LEN} ({x.shape[0]}"
+          f" rows): {eval_ms:.3f} ms a call, loss {outs[-1]['loss'].item():.8f}"
+          f" against objective.loss {ref.item():.8f} (rel {rel:.3e}, <= 1e-5)"
+          f", mse {outs[-1]['mse'].item():.6f}; launches "
+          f"{paths['interfaces_eval']}", flush=True)
+    if not rel <= 1e-5 or set(outs[-1]) != {"loss", "mse"}:
+        raise AssertionError(f"eval step: rel {rel}, keys {set(outs[-1])}")
+    if paths["interfaces_eval"]["mdct_cuda"] != INTERFACE_STEPS:
+        raise AssertionError("the eval step launched "
+                             f"{paths['interfaces_eval']['mdct_cuda']} MDCTs"
+                             f" in {INTERFACE_STEPS} calls, expected 1 each")
+    del state, outs
+    torch.cuda.empty_cache()
+
+    paths["interfaces_train_step"] = _interface_train(device, card, False,
+                                                      batch)
+    paths["interfaces_train_step_fused"] = _interface_train(device, card,
+                                                            True, batch)
+    _check_stage_fusable(device, card)
+
+    # device_time of the round trip, beside time_ms of the same call
+    model = create_flow_model(config, generator=torch.Generator().manual_seed(0))
+    codec = AudioCodec(model, None, config, device=device)
+    audio = synth_audio(4, CLIP_LEN, gen, device)
+    round_gen = torch.Generator(device=device).manual_seed(20)
+
+    def roundtrip():
+        return codec.roundtrip(audio, generator=round_gen)
+
+    zero_launches()
+    seconds = profiling.device_time(roundtrip, iters=10, warmup=2)
+    paths["interfaces_device_time"] = read_launches()
+    events_ms = time_ms(roundtrip, batches=3)
+    print(f"[{card}] device_time(codec.roundtrip, 4 clips x {CLIP_LEN}, "
+          f"bf16): {1e3 * seconds:.3f} ms a call (host clock, 10 calls ended "
+          f"by synchronize and a host read) beside time_ms {events_ms:.3f} "
+          f"ms (CUDA events); launches "
+          f"{paths['interfaces_device_time']}", flush=True)
+    if not (seconds > 0 and paths["interfaces_device_time"]["mdct_cuda"]
+            == paths["interfaces_device_time"]["imdct_cuda"] == 12):
+        raise AssertionError(f"device_time {seconds}, launches "
+                             f"{paths['interfaces_device_time']}")
+    del codec, model
+    torch.cuda.empty_cache()
+    print(f"[{card}] interfaces phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -3862,6 +4146,9 @@ def main() -> int:
     parser.add_argument("--orbax-only", action="store_true",
                         help="the build, then phase 16 (orbax checkpoints) "
                              "alone")
+    parser.add_argument("--interfaces-only", action="store_true",
+                        help="the build, then phase 17 (the layer "
+                             "interfaces) alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3910,6 +4197,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps({"orbax": orbax_phase(device, card, Path(tmp))}),
                   flush=True)
+        return 0
+    if args.interfaces_only:
+        print(json.dumps({"interfaces": interfaces_phase(device, card)}),
+              flush=True)
         return 0
     clock = [time.perf_counter()]
 
@@ -4022,6 +4313,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(orbax_phase(device, card, Path(tmp)))
     lap("orbax")
+    paths.update(interfaces_phase(device, card))
+    lap("interfaces")
 
     results["gelu_grn_cuda"]["launches_by_kernel"] = {
         variant: sum(p["gelu_grn_variants"][variant] for p in paths.values())

@@ -17,6 +17,8 @@ Subpackages:
               latent quantizers and MACB bitstream, the rANS coder's
               binding, the W8A8 int8 products of quantized serving
   models    — the ConvNeXt, MLP, MLP-Mixer and simple-conv flows
+  configs   — the v2 JSON config (``CodecConfig``, also the sectioned
+              ``TrainFlowConfig``), validation, migration, merge and diff
   training  — the token adapter, the objectives, optimiser, train steps,
               the trainer (``python -m meanflow_audio_codec_torch.train``)
               and the minimal ``simple_trainer``
@@ -26,14 +28,22 @@ Subpackages:
 
 ``codec.AudioCodec`` serves a trained run (``from_workdir``, the byte API,
 ``quantized=True`` for the int8 decoder);
-``streaming`` runs it on chunked audio.
+``streaming`` runs it on chunked audio. ``AudioCodec``, ``StreamingCodec``,
+``StreamingEncoder`` and ``StreamingDecoder`` are also the package's own
+names, imported at first use. The subpackages export the JAX package's
+names (``ops``, ``models``, ``training``, ``data``, ``evaluators``,
+``parallel``; its ``configs`` package's are ``configs.py``'s).
 """
 
 __version__ = "0.1.0"
 
 
 def __getattr__(name):
+    # lazy, as in the JAX package: a bare package import stays light
     if name == "AudioCodec":
         from meanflow_audio_codec_torch.codec import AudioCodec
         return AudioCodec
+    if name in ("StreamingCodec", "StreamingEncoder", "StreamingDecoder"):
+        from meanflow_audio_codec_torch import streaming
+        return getattr(streaming, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

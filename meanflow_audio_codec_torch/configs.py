@@ -7,9 +7,23 @@ Counterpart of ``meanflow_audio_codec_tpu/configs/config.py``. One type,
 (``dataset.*``), the optimiser (``base.*``), the run (``training.*``), the
 objective (``method.*``) and ``tpu.precision``/``remat``/
 ``skip_nonfinite_updates``/``steps_per_call``. The v2 dict it was read from
-is kept whole in ``source``; ``tpu.mesh_data`` and ``mesh_model`` are read
-from there (:attr:`CodecConfig.mesh_data`, :attr:`CodecConfig.mesh_model`),
-``donate`` is not read.
+is kept whole in ``source``; ``tpu.mesh_data``, ``mesh_model`` and
+``donate`` are read from there (properties of the same names).
+
+The JAX package's sectioned ``TrainFlowConfig`` is this same type
+(``TrainFlowConfig = CodecConfig``), with section views added: ``base``,
+``model``, ``dataset_config``, ``method_config``, ``training`` and ``tpu``
+are :class:`Section` objects (``BaseConfig``, ``ModelConfig``, ...) built
+from :meth:`CodecConfig.to_dict`, so section access and flat access
+(``config.batch_size``, ``config.dataset``, the name, ...) read the same
+values. The sections are frozen views: a change goes through
+``dataclasses.replace`` or :func:`merge_configs`. ``TrainFlowConfig(base=...,
+model=..., dataset=..., method=..., training=..., tpu=..., output_dir=...,
+run_name=...)``, the JAX package's constructor, builds the same config as
+reading its dict. Two flat fields read differently from the JAX package's:
+``workdir`` is a ``str`` (the section's is a ``Path``, as in JAX), and
+``architecture_options``/``tokenization_config`` are ``{}`` when unset (the
+sections' are None, as in JAX).
 
 Reading does what the JAX package's ``TrainFlowConfig.from_dict`` does: a
 v1 flat dict is lifted into the v2 layout (:func:`migrate_config_v1_to_v2`),
@@ -17,9 +31,11 @@ each section's defaults are filled in and its unset (``None``) fields left
 out, a field a section does not have raises ``TypeError``, the deprecated
 ``output_dir``/``run_name`` become ``training.workdir``, and every value the
 JAX package's ``validate()`` rejects raises ``ValueError`` (also on
-``dataclasses.replace``). One leniency: a dict that holds only a ``model``
-section (all the codec reads) is accepted, where the JAX package needs the
-``base`` and ``training`` sections and their required fields.
+``dataclasses.replace``). The sections' ``validate()`` run the same
+``_validate_*`` functions, the one validator. One leniency: a dict that
+holds only a ``model`` section (all the codec reads) is accepted, where the
+JAX package needs the ``base`` and ``training`` sections and their required
+fields.
 
 :meth:`CodecConfig.to_dict` writes the v2 dict back (:func:`save_config_to_json`
 with JAX's ``indent=2, sort_keys=True``), so the JAX package's
@@ -32,9 +48,9 @@ from __future__ import annotations
 import copy
 import json
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import MISSING, dataclass, field, fields
 from pathlib import Path
-from typing import Any
+from typing import Any, ClassVar
 
 #: name -> allowed values (the JAX package's ``_CHOICES``)
 _CHOICES: dict[str, list[str]] = {
@@ -53,39 +69,172 @@ _CHOICES: dict[str, list[str]] = {
 }
 LR_SCHEDULES = ("constant", "cosine")
 
-#: a field without a default (the JAX dataclass's required fields)
+# ============================================================================
+# Sections: the JAX package's section dataclasses, read-only here
+# ============================================================================
+
+
+@dataclass(frozen=True)
+class Section:
+    """Base of the config sections: ``to_dict`` (unset fields left out),
+    ``get_schema`` and ``validate`` (the section's ``_validate_*``)."""
+
+    #: the section's key in the v2 dict
+    key: ClassVar[str] = ""
+
+    def to_dict(self) -> dict:
+        return {f.name: str(value) if isinstance(value, Path) else value
+                for f in fields(self)
+                if (value := getattr(self, f.name)) is not None}
+
+    def get_schema(self) -> dict:
+        schema: dict[str, Any] = {}
+        for f in fields(self):
+            entry: dict[str, Any] = {
+                "type": str(f.type),
+                "required": (f.default is MISSING
+                             and f.default_factory is MISSING),
+                "default": None if f.default in (MISSING, None) else f.default,
+            }
+            if f.name in _CHOICES:
+                entry["allowed_values"] = list(_CHOICES[f.name])
+            schema[f.name] = entry
+        return schema
+
+    def validate(self) -> None:
+        _VALIDATORS[self.key](self.to_dict())
+
+
+@dataclass(frozen=True)
+class BaseConfig(Section):
+    """The optimiser: batch, steps, learning rate and its schedule, weight
+    decay, seed, gradient clip."""
+
+    key: ClassVar[str] = "base"
+    batch_size: int
+    n_steps: int
+    base_lr: float
+    weight_decay: float
+    seed: int
+    grad_clip_norm: float | None = None
+    warmup_steps: int = 0
+    lr_schedule: str = "constant"
+    lr_final_fraction: float = 0.0
+
+
+@dataclass(frozen=True)
+class ModelConfig(Section):
+    """The flow model: widths, depth, family and its sizing options."""
+
+    key: ClassVar[str] = "model"
+    noise_dimension: int
+    condition_dimension: int
+    latent_dimension: int
+    num_blocks: int
+    architecture: str | None = None
+    architecture_options: dict | None = None
+
+
+@dataclass(frozen=True)
+class DatasetConfig(Section):
+    """The data source and its tokenization."""
+
+    key: ClassVar[str] = "dataset"
+    dataset: str | None = None
+    data_dir: str | None = None
+    tokenization_strategy: str | None = None
+    tokenization_config: dict | None = None
+    resample_audio: bool = False
+
+
+@dataclass(frozen=True)
+class MethodConfig(Section):
+    """The objective, its noise schedule, time sampling and latent QAT."""
+
+    key: ClassVar[str] = "method"
+    method: str | None = None
+    use_improved_mean_flow: bool = False
+    gamma: float | None = None
+    flow_ratio: float | None = None
+    c: float | None = None
+    use_stop_gradient: bool | None = None
+    loss_weighting: str | None = None
+    loss_strategy: str | None = None
+    noise_schedule: str | None = None
+    noise_min: float | None = None
+    noise_max: float | None = None
+    time_sampling: str | None = None
+    time_sampling_mean: float | None = None
+    time_sampling_std: float | None = None
+    time_sampling_data_proportion: float | None = None
+    time_sampling_full_proportion: float | None = None
+    use_weighted_loss: bool | None = None
+    qat_mode: str | None = None
+    qat_step_frac: float | None = None
+    qat_bits: int | None = None
+
+
+@dataclass(frozen=True)
+class TrainingConfig(Section):
+    """The run: sampling, workdir, checkpoints, EMA."""
+
+    key: ClassVar[str] = "training"
+    sample_every: int
+    sample_seed: int
+    sample_steps: int
+    workdir: Path | None = None
+    checkpoint_step: int | None = None
+    max_checkpoints_to_keep: int | None = None
+    checkpoint_format: str | None = None
+    ema_decay: float | None = None
+    sample_guidance_scale: float | None = None
+
+    def __post_init__(self) -> None:
+        if isinstance(self.workdir, str):
+            object.__setattr__(self, "workdir", Path(self.workdir))
+
+
+@dataclass(frozen=True)
+class TPUConfig(Section):
+    """The execution policy: mesh axes, precision, remat, donation, steps
+    per call, the non-finite guard (named for the JAX package's TPU; the
+    port reads it on the card)."""
+
+    key: ClassVar[str] = "tpu"
+    mesh_data: int = -1
+    mesh_model: int = 1
+    precision: str = "mixed"
+    remat: bool = False
+    donate: bool = True
+    steps_per_call: int = 1
+    skip_nonfinite_updates: bool = False
+
+
+def MNISTConfig(**kwargs) -> DatasetConfig:
+    """The MNIST dataset section (reshape tokenization unless given)."""
+    kwargs.setdefault("tokenization_strategy", "reshape")
+    kwargs["dataset"] = "mnist"
+    return DatasetConfig(**kwargs)
+
+
+def AudioConfig(**kwargs) -> DatasetConfig:
+    """The audio dataset section (MDCT tokenization unless given)."""
+    kwargs.setdefault("tokenization_strategy", "mdct")
+    kwargs["dataset"] = "audio"
+    return DatasetConfig(**kwargs)
+
+
+#: section name -> its type, in the v2 dict's order
+_SECTION_TYPES: dict[str, type[Section]] = {
+    t.key: t for t in (BaseConfig, ModelConfig, DatasetConfig, MethodConfig,
+                       TrainingConfig, TPUConfig)}
+#: a field without a default (the section's required fields)
 _REQUIRED = object()
-#: section -> field -> default, in the JAX dataclasses' order
+#: section -> field -> default, in the sections' order
 _FIELDS: dict[str, dict[str, Any]] = {
-    "base": {"batch_size": _REQUIRED, "n_steps": _REQUIRED,
-             "base_lr": _REQUIRED, "weight_decay": _REQUIRED,
-             "seed": _REQUIRED, "grad_clip_norm": None, "warmup_steps": 0,
-             "lr_schedule": "constant", "lr_final_fraction": 0.0},
-    "model": {"noise_dimension": _REQUIRED, "condition_dimension": _REQUIRED,
-              "latent_dimension": _REQUIRED, "num_blocks": _REQUIRED,
-              "architecture": None, "architecture_options": None},
-    "dataset": {"dataset": None, "data_dir": None,
-                "tokenization_strategy": None, "tokenization_config": None,
-                "resample_audio": False},
-    "method": {"method": None, "use_improved_mean_flow": False,
-               "gamma": None, "flow_ratio": None, "c": None,
-               "use_stop_gradient": None, "loss_weighting": None,
-               "loss_strategy": None, "noise_schedule": None,
-               "noise_min": None, "noise_max": None, "time_sampling": None,
-               "time_sampling_mean": None, "time_sampling_std": None,
-               "time_sampling_data_proportion": None,
-               "time_sampling_full_proportion": None,
-               "use_weighted_loss": None, "qat_mode": None,
-               "qat_step_frac": None, "qat_bits": None},
-    "training": {"sample_every": _REQUIRED, "sample_seed": _REQUIRED,
-                 "sample_steps": _REQUIRED, "workdir": None,
-                 "checkpoint_step": None, "max_checkpoints_to_keep": None,
-                 "checkpoint_format": None, "ema_decay": None,
-                 "sample_guidance_scale": None},
-    "tpu": {"mesh_data": -1, "mesh_model": 1, "precision": "mixed",
-            "remat": False, "donate": True, "steps_per_call": 1,
-            "skip_nonfinite_updates": False},
-}
+    name: {f.name: _REQUIRED if f.default is MISSING else f.default
+           for f in fields(t)}
+    for name, t in _SECTION_TYPES.items()}
 #: fields kept in ``source`` only (the mesh sizes are read from there)
 _NOT_READ = ("mesh_data", "mesh_model", "donate")
 #: dict fields: an empty one is written back only when the source had it
@@ -189,25 +338,144 @@ class CodecConfig:
         """``tpu.mesh_model``: the tensor-parallel axis of the mesh."""
         return int((self.source.get("tpu") or {}).get("mesh_model", 1))
 
+    @property
+    def donate(self) -> bool:
+        """``tpu.donate`` (JAX's buffer donation; PyTorch updates in place
+        and does not read it)."""
+        return bool((self.source.get("tpu") or {}).get("donate", True))
+
+    @property
+    def config_version(self) -> str:
+        return self.source.get("config_version", "2.0")
+
+    # ---- section views (the JAX package's TrainFlowConfig) -----------------
+    def _section(self, name: str) -> Section:
+        return _SECTION_TYPES[name](**self._section_dict(name))
+
+    @property
+    def base(self) -> BaseConfig:
+        return self._section("base")
+
+    @property
+    def model(self) -> ModelConfig:
+        return self._section("model")
+
+    @property
+    def dataset_config(self) -> DatasetConfig:
+        return self._section("dataset")
+
+    @property
+    def method_config(self) -> MethodConfig:
+        return self._section("method")
+
+    @property
+    def training(self) -> TrainingConfig:
+        return self._section("training")
+
+    @property
+    def tpu(self) -> TPUConfig:
+        return self._section("tpu")
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` on a value the JAX package rejects (every
+        config is validated when it is made; this checks again)."""
+        validate(self.to_dict())
+
+    @classmethod
+    def from_dict(cls, data: dict) -> CodecConfig:
+        """:func:`config_from_dict` (the JAX package's
+        ``TrainFlowConfig.from_dict``)."""
+        return config_from_dict(data)
+
+    def get_schema(self) -> dict:
+        """Each section's fields: type, whether required, default, allowed
+        values."""
+        return {"config_version": self.config_version,
+                **{name: self._section(name).get_schema()
+                   for name in _SECTION_TYPES}}
+
+    def get_documentation(self) -> str:
+        """The schema as markdown, as the JAX package writes it."""
+        lines = ["# TrainFlowConfig Documentation", "",
+                 f"Config Version: {self.config_version}", ""]
+        for name, section_type in _SECTION_TYPES.items():
+            lines += [f"## {section_type.__name__}", ""]
+            for field_name, info in self._section(name).get_schema().items():
+                lines.append(f"- `{field_name}`: {info['type']}")
+                if info.get("allowed_values"):
+                    lines.append("  - Allowed values: "
+                                 f"{', '.join(info['allowed_values'])}")
+                if info["default"] is not None:
+                    lines.append(f"  - Default: {info['default']}")
+                lines.append("")
+        return "\n".join(lines)
+
+    def _section_dict(self, section: str) -> dict:
+        """One section of :meth:`to_dict`: the source's section with every
+        field the port reads written over it (unset fields left out)."""
+        target = copy.deepcopy(self.source.get(section) or {})
+        for name in _FIELDS[section]:
+            if name in _NOT_READ:
+                continue
+            value = getattr(self, name)
+            if name == "workdir" and value is not None:
+                value = str(Path(value))
+            if value is None or (name in _DICT_FIELDS and not value
+                                 and name not in target):
+                target.pop(name, None)
+            else:
+                target[name] = copy.deepcopy(value)
+        return target
+
     def to_dict(self) -> dict:
         """The v2 hierarchical dict of this config: the source dict with every
         field the port reads written over it (unset fields left out)."""
-        out = copy.deepcopy(self.source)
+        out = {key: (self._section_dict(key) if key in _FIELDS
+                     else copy.deepcopy(value))
+               for key, value in self.source.items()}
         out.setdefault("config_version", "2.0")
-        for section, names in _FIELDS.items():
-            target = out.setdefault(section, {})
-            for name in names:
-                if name in _NOT_READ:
-                    continue
-                value = getattr(self, name)
-                if name == "workdir" and value is not None:
-                    value = str(Path(value))
-                if value is None or (name in _DICT_FIELDS and not value
-                                     and name not in target):
-                    target.pop(name, None)
-                else:
-                    target[name] = copy.deepcopy(value)
+        for section in _FIELDS:
+            if section not in out:
+                out[section] = self._section_dict(section)
         return out
+
+
+_flat_init = CodecConfig.__init__
+
+
+def _sectioned_dict(base: BaseConfig, model: ModelConfig,
+                    dataset: DatasetConfig, method: MethodConfig,
+                    training: TrainingConfig, tpu: TPUConfig | None = None,
+                    output_dir: Path | str | None = None,
+                    run_name: str | None = None,
+                    config_version: str = "2.0") -> dict:
+    """The v2 dict of the JAX package's ``TrainFlowConfig(...)`` arguments."""
+    data: dict[str, Any] = {"config_version": config_version}
+    for name, section in zip(_SECTION_TYPES, (base, model, dataset, method,
+                                              training, tpu or TPUConfig())):
+        data[name] = section.to_dict()
+    if output_dir is not None:
+        data["output_dir"] = str(output_dir)
+    if run_name is not None:
+        data["run_name"] = run_name
+    return data
+
+
+def _init(self, *args, **kwargs) -> None:
+    """The flat fields (as ``dataclasses.replace`` passes them), or the JAX
+    package's sections: ``TrainFlowConfig(base, model, dataset, method,
+    training, tpu=None, output_dir=None, run_name=None)``."""
+    if "base" in kwargs or (args and isinstance(args[0], BaseConfig)):
+        # validated once, by __post_init__
+        normalized = _normalize(_sectioned_dict(*args, **kwargs))
+        _flat_init(self, **_flat_values(normalized), source=normalized)
+    else:
+        _flat_init(self, *args, **kwargs)
+
+
+CodecConfig.__init__ = _init
+#: the JAX package's name for the sectioned config: the same type
+TrainFlowConfig = CodecConfig
 
 
 # ============================================================================
@@ -413,10 +681,8 @@ def _normalize(data: dict) -> dict:
     return out
 
 
-def config_from_dict(data: dict) -> CodecConfig:
-    """Build a :class:`CodecConfig` from a parsed v1 or v2 config dict."""
-    normalized = _normalize(data)
-    validate(normalized)
+def _flat_values(normalized: dict) -> dict:
+    """The flat fields of a normalised v2 dict."""
     values = {name: normalized[section][name]
               for section, names in _FIELDS.items() for name in names
               if name not in _NOT_READ and name in normalized[section]}
@@ -426,13 +692,24 @@ def config_from_dict(data: dict) -> CodecConfig:
         raise ValueError(f"the model section needs {missing}")
     for name in _DICT_FIELDS:
         values[name] = dict(values.get(name) or {})
-    return CodecConfig(**values, source=normalized)
+    return values
+
+
+def config_from_dict(data: dict) -> CodecConfig:
+    """Build a :class:`CodecConfig` from a parsed v1 or v2 config dict."""
+    normalized = _normalize(data)
+    validate(normalized)
+    return CodecConfig(**_flat_values(normalized), source=normalized)
 
 
 def load_config(path: Path | str) -> CodecConfig:
     """Read a v1 or v2 JSON config file."""
     with Path(path).open("r", encoding="utf-8") as f:
         return config_from_dict(json.load(f))
+
+
+#: the JAX package's name for :func:`load_config`
+load_config_from_json = load_config
 
 
 def save_config_to_json(config: CodecConfig, path: Path | str) -> None:
@@ -501,6 +778,20 @@ def diff_dicts(old: dict, new: dict) -> dict:
 def diff_configs(config1: CodecConfig, config2: CodecConfig) -> dict:
     """Compare two configs (:func:`diff_dicts` of their v2 dicts)."""
     return diff_dicts(config1.to_dict(), config2.to_dict())
+
+
+def print_config_diff(diff: dict) -> None:
+    """Print a :func:`diff_configs` result as the JAX package does."""
+    if diff["changed"]:
+        print("Changed parameters:")
+        for key, change in diff["changed"].items():
+            print(f"  {key}: {change['old']} -> {change['new']}")
+    if diff["added"]:
+        print(f"Added parameters: {', '.join(diff['added'])}")
+    if diff["removed"]:
+        print(f"Removed parameters: {', '.join(diff['removed'])}")
+    if not (diff["changed"] or diff["added"] or diff["removed"]):
+        print("No differences found.")
 
 
 # ============================================================================

@@ -4,11 +4,11 @@ and PESQ when the optional ``pesq`` package imports.
 Counterpart of ``meanflow_audio_codec_tpu/evaluators/audio_metrics.py``: the
 same numpy/scipy code on the host. ``spectral_distance``'s MDCT domain goes
 through the port's plain ``ops/mdct.mdct`` on a CPU tensor, the direct
-product below ``FFT_THRESHOLD`` as the JAX package's plain MDCT takes it
-off the TPU. STOI is Taal et al. (2011) from the published algorithm (10 kHz
-through ``scipy.signal.resample_poly``, 15 one-third-octave bands, 384 ms
-segments); NSIM the neurogram similarity of ViSQOL; BSD the bark spectral
-distortion of Wang, Sekey & Gersho (1992).
+product below ``DEFAULT_FFT_THRESHOLD`` as the JAX package's plain MDCT
+takes it off the TPU. STOI is Taal et al. (2011) from the published
+algorithm (10 kHz through ``scipy.signal.resample_poly``, 15
+one-third-octave bands, 384 ms segments); NSIM the neurogram similarity of
+ViSQOL; BSD the bark spectral distortion of Wang, Sekey & Gersho (1992).
 """
 
 from __future__ import annotations

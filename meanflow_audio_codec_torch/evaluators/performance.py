@@ -19,7 +19,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from meanflow_audio_codec_torch.training.profiling import device_memory_stats
+from meanflow_audio_codec_torch.training.profiling import (
+    device_memory_stats,
+    force_completion,
+)
 from meanflow_audio_codec_torch.weights import torch_to_flax
 
 
@@ -27,17 +30,6 @@ def memory_usage(device: torch.device | str = "cuda") -> dict:
     """``{device: {bytes_in_use, peak_bytes_in_use, bytes_limit}}`` for a
     card (plus the host's resident set when psutil imports)."""
     return device_memory_stats(device)
-
-
-def force_completion(out) -> None:
-    """Wait for the card's work behind ``out`` (a tensor, or a tuple, list
-    or dict of them)."""
-    if isinstance(out, Mapping):
-        out = list(out.values())
-    tensors = out if isinstance(out, (list, tuple)) else [out]
-    for device in {t.device for t in tensors
-                   if isinstance(t, torch.Tensor) and t.device.type == "cuda"}:
-        torch.cuda.synchronize(device)
 
 
 def inference_time(fn: Callable, *args, warmup: int = 5, runs: int = 50,

@@ -76,18 +76,28 @@ def time_dependent_weight(t: torch.Tensor, c: float = 1e-2) -> torch.Tensor:
     return w / w.mean()
 
 
+def init_learned_weight_params() -> dict:
+    """Fresh parameters for ``loss_weighting='learned'``: ``{"poly":
+    zeros(3)}`` float32, s(t) = 0 (w(t) = 1, regulariser 0). The JAX
+    package merges them into its param tree under ``loss_weighting``; the
+    port holds them as a module's parameter instead, which
+    :func:`attach_learned_weighting` gives the model (``model.loss_weighting
+    .poly``, initialised from these values)."""
+    return {"poly": torch.zeros(3, dtype=torch.float32)}
+
+
 class LearnedWeighting(nn.Module):
     """The log-variance polynomial ``s(t) = a0 + a1 t + a2 t^2``, zero at
     init (w(t) = 1, regulariser 0)."""
 
     def __init__(self):
         super().__init__()
-        self.poly = nn.Parameter(torch.zeros(3, dtype=torch.float32))
+        self.poly = nn.Parameter(init_learned_weight_params()["poly"])
 
 
 def attach_learned_weighting(model: nn.Module) -> nn.Module:
     """Give ``model`` the learned weighting's parameters (the JAX trainer
-    merges ``init_learned_weight_params()`` into its param tree)."""
+    merges :func:`init_learned_weight_params` into its param tree)."""
     setattr(model, LEARNED_WEIGHT_KEY, LearnedWeighting())
     return model
 

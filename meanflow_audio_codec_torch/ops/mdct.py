@@ -2,10 +2,14 @@
 
 Counterpart of ``meanflow_audio_codec_tpu/ops/mdct.py``. ``mdct`` and
 ``imdct`` take the direct path (framing + one matmul against the windowed
-basis; ``mdct_direct``/``imdct_direct``) below ``FFT_THRESHOLD`` (W 4096,
-the JAX package's default) and the O(W log W) FFT path (``mdct_fft``/``imdct_fft``, on
+basis; ``mdct_direct``/``imdct_direct``) below the config's
+``use_fft_threshold`` (``DEFAULT_FFT_THRESHOLD``, W 4096, the JAX package's
+default) and the O(W log W) FFT path (``mdct_fft``/``imdct_fft``, on
 ``torch.fft``: cuFFT on the card) from it on, as the JAX package's do off
-the TPU. They are the plain versions of the two CUDA kernels
+the TPU. Each takes the JAX package's keyword form (``window_size``,
+``hop_size``, for ``mdct``/``imdct`` also ``use_fft_threshold`` and
+``config``) or an :class:`MDCTConfig` in place of ``window_size``. They
+are the plain versions of the two CUDA kernels
 (``ops/mdct_cuda.py``, ``ops/imdct_cuda.py``): the CPU runs them, the tests
 hold them against the JAX package, and the chip check holds the kernels
 against them. On the card the tokenizer calls the kernels instead, at every
@@ -34,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 DEFAULT_WINDOW_SIZE = 576
-FFT_THRESHOLD = 4096  # the direct path below this W, the FFT from it
+DEFAULT_FFT_THRESHOLD = 4096  # the direct path below this W, the FFT from it
 PRINCEN_BRADLEY_OFFSET = 0.5
 IMDCT_SCALING_FACTOR = 2.0
 
@@ -42,11 +46,18 @@ IMDCT_SCALING_FACTOR = 2.0
 @dataclass(frozen=True)
 class MDCTConfig:
     """Static MDCT parameters: W coefficients per frame of length 2W,
-    frames ``hop_size`` apart (default W // 2)."""
+    frames ``hop_size`` apart (default W // 2); the plain ``mdct``/``imdct``
+    take the FFT path from W = ``use_fft_threshold`` on.
+
+    ``use_fft_threshold`` comes after ``normalize`` (the JAX package puts it
+    before), so the port's positional ``MDCTConfig(W, hop, normalize)``
+    keeps its meaning; pass it by keyword. The CUDA kernels take every W,
+    whatever the threshold."""
 
     window_size: int = DEFAULT_WINDOW_SIZE
     hop_size: int | None = None
     normalize: bool = False
+    use_fft_threshold: int = DEFAULT_FFT_THRESHOLD
 
     def __post_init__(self) -> None:
         if self.window_size <= 0:
@@ -54,6 +65,9 @@ class MDCTConfig:
                 f"window_size must be positive, got {self.window_size}")
         if self.hop_size is not None and self.hop_size <= 0:
             raise ValueError(f"hop_size must be positive, got {self.hop_size}")
+        if self.use_fft_threshold <= 0:
+            raise ValueError("use_fft_threshold must be positive, got "
+                             f"{self.use_fft_threshold}")
         if self.hop_size is None:
             object.__setattr__(self, "hop_size", self.window_size // 2)
 
@@ -183,8 +197,21 @@ def _overlap_add(frames: torch.Tensor, hop: int, out_len: int) -> torch.Tensor:
 # ============================================================================
 
 
-def mdct_direct(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def _as_config(config: MDCTConfig | int, hop_size: int | None = None,
+               use_fft_threshold: int = DEFAULT_FFT_THRESHOLD) -> MDCTConfig:
+    """``config`` itself, or the config of window size ``config``,
+    ``hop_size`` and ``use_fft_threshold`` (the JAX package's keyword form;
+    no normalisation, as there)."""
+    if isinstance(config, MDCTConfig):
+        return config
+    return MDCTConfig(window_size=config, hop_size=hop_size,
+                      use_fft_threshold=use_fft_threshold)
+
+
+def mdct_direct(x: torch.Tensor, config: MDCTConfig | int,
+                hop_size: int | None = None) -> torch.Tensor:
     """Forward MDCT, ``(..., T) -> (..., n_frames, W)``: framing + matmul."""
+    config = _as_config(config, hop_size)
     if x.ndim == 0:
         raise ValueError("Input must have at least 1 dimension")
     w, hop = config.window_size, config.hop_size
@@ -199,9 +226,11 @@ def _twiddles(window_size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.tensor(pre, device=device), torch.tensor(post, device=device))
 
 
-def mdct_fft(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def mdct_fft(x: torch.Tensor, config: MDCTConfig | int,
+             hop_size: int | None = None) -> torch.Tensor:
     """Forward MDCT by a 2W-point complex FFT of the windowed, pre-twiddled
     frames; the same coefficients as :func:`mdct_direct`."""
+    config = _as_config(config, hop_size)
     if x.ndim == 0:
         raise ValueError("Input must have at least 1 dimension")
     w, hop = config.window_size, config.hop_size
@@ -216,12 +245,18 @@ def mdct_fft(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
 
 
 def _use_fft(config: MDCTConfig) -> bool:
-    return config.window_size >= FFT_THRESHOLD
+    return config.window_size >= config.use_fft_threshold
 
 
-def mdct(x: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def mdct(x: torch.Tensor, window_size: MDCTConfig | int = DEFAULT_WINDOW_SIZE,
+         hop_size: int | None = None,
+         use_fft_threshold: int = DEFAULT_FFT_THRESHOLD,
+         config: MDCTConfig | None = None) -> torch.Tensor:
     """Forward MDCT, ``(..., T) -> (..., n_frames, W)``: the direct path
-    below ``FFT_THRESHOLD``, the FFT path from it on."""
+    below the config's ``use_fft_threshold``, the FFT path from it on.
+    ``mdct(x, config)`` and the JAX package's keyword form both work."""
+    if config is None:
+        config = _as_config(window_size, hop_size, use_fft_threshold)
     return (mdct_fft if _use_fft(config) else mdct_direct)(x, config)
 
 
@@ -240,9 +275,11 @@ def _coeff_rows(X: torch.Tensor) -> torch.Tensor:
     return X.reshape(-1, X.shape[-2], X.shape[-1]).float()
 
 
-def imdct_direct(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def imdct_direct(X: torch.Tensor, config: MDCTConfig | int,
+                 hop_size: int | None = None) -> torch.Tensor:
     """Inverse MDCT, ``(..., n_frames, W) -> (..., (nf-1)*hop + 2W)``:
     matmul + overlap-add."""
+    config = _as_config(config, hop_size)
     x3d = _coeff_rows(X)
     w, hop = config.window_size, config.hop_size
     out_len = output_length(x3d.shape[1], w, hop)
@@ -252,10 +289,12 @@ def imdct_direct(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     return signal.reshape(X.shape[:-2] + (out_len,)).to(X.dtype)
 
 
-def imdct_fft(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def imdct_fft(X: torch.Tensor, config: MDCTConfig | int,
+              hop_size: int | None = None) -> torch.Tensor:
     """Inverse MDCT by a 2W-point inverse FFT: ``y[n] = scale Re(conj(pre[n])
     ifft(conj(post) X, zero-padded to 2W)[n]) w[n]``, overlap-added; the
     ``2W`` of the ifft's normalisation folds into the scale."""
+    config = _as_config(config, hop_size)
     x3d = _coeff_rows(X)
     w, hop = config.window_size, config.hop_size
     out_len = output_length(x3d.shape[1], w, hop)
@@ -268,8 +307,14 @@ def imdct_fft(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
     return signal.reshape(X.shape[:-2] + (out_len,)).to(X.dtype)
 
 
-def imdct(X: torch.Tensor, config: MDCTConfig) -> torch.Tensor:
+def imdct(X: torch.Tensor, window_size: MDCTConfig | int = DEFAULT_WINDOW_SIZE,
+          hop_size: int | None = None,
+          use_fft_threshold: int = DEFAULT_FFT_THRESHOLD,
+          config: MDCTConfig | None = None) -> torch.Tensor:
     """Inverse MDCT, ``(..., n_frames, W) -> (..., (nf-1)*hop + 2W)``: the
-    direct path below ``FFT_THRESHOLD``, the FFT path from it on.
-    """
+    direct path below the config's ``use_fft_threshold``, the FFT path from
+    it on. ``imdct(X, config)`` and the JAX package's keyword form both
+    work."""
+    if config is None:
+        config = _as_config(window_size, hop_size, use_fft_threshold)
     return (imdct_fft if _use_fft(config) else imdct_direct)(X, config)

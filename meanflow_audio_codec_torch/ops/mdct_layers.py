@@ -6,6 +6,8 @@ Stereo inputs fold their channels into the batch (one transform over
 along the frequency axis, as in the JAX package. The transforms go through
 the kernel wrappers (``ops/mdct_cuda.py``, ``ops/imdct_cuda.py``): the CUDA
 kernels on the card, the plain versions on the CPU, differentiable on both.
+``use_fft_threshold`` is where the CPU's plain versions take the FFT path;
+the card's kernels take every W.
 """
 
 from __future__ import annotations
@@ -14,14 +16,19 @@ import torch
 from torch import nn
 
 from meanflow_audio_codec_torch.ops.imdct_cuda import imdct_cuda
-from meanflow_audio_codec_torch.ops.mdct import DEFAULT_WINDOW_SIZE, MDCTConfig
+from meanflow_audio_codec_torch.ops.mdct import (
+    DEFAULT_FFT_THRESHOLD,
+    DEFAULT_WINDOW_SIZE,
+    MDCTConfig,
+)
 from meanflow_audio_codec_torch.ops.mdct_cuda import mdct_cuda
 
 
-def _config(window_size: int, hop_size: int | None,
+def _config(window_size: int, hop_size: int | None, use_fft_threshold: int,
             config: MDCTConfig | None) -> MDCTConfig:
     return config if config is not None else MDCTConfig(
-        window_size=window_size, hop_size=hop_size)
+        window_size=window_size, hop_size=hop_size,
+        use_fft_threshold=use_fft_threshold)
 
 
 class MDCTLayer(nn.Module):
@@ -30,9 +37,11 @@ class MDCTLayer(nn.Module):
 
     def __init__(self, window_size: int = DEFAULT_WINDOW_SIZE,
                  hop_size: int | None = None,
+                 use_fft_threshold: int = DEFAULT_FFT_THRESHOLD,
                  config: MDCTConfig | None = None):
         super().__init__()
-        self.config = _config(window_size, hop_size, config)
+        self.config = _config(window_size, hop_size, use_fft_threshold,
+                              config)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 3 and x.shape[-1] == 2:
@@ -48,9 +57,11 @@ class IMDCTLayer(nn.Module):
 
     def __init__(self, window_size: int = DEFAULT_WINDOW_SIZE,
                  hop_size: int | None = None,
+                 use_fft_threshold: int = DEFAULT_FFT_THRESHOLD,
                  config: MDCTConfig | None = None):
         super().__init__()
-        self.config = _config(window_size, hop_size, config)
+        self.config = _config(window_size, hop_size, use_fft_threshold,
+                              config)
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         w = self.config.window_size

@@ -213,3 +213,22 @@ def fused_gelu_grn(x3: torch.Tensor, gamma: torch.Tensor,
     one pass, with the GRN parameters ``gamma``/``beta`` [C]; float32
     accumulation, the result in ``x3``'s dtype."""
     return _apply(_GeluGrnStats, _gelu_grn_tangent, x3, gamma, beta)
+
+
+def stage_fusable(spatial: int, channels: int,
+                  dtype: torch.dtype = torch.bfloat16) -> bool:
+    """True when the ``[B, spatial**2, channels]`` geometry of ``dtype``
+    runs the three stage kernels on the card (the GELU+GRN on its
+    ``2 * channels`` expansion): float32 or bfloat16 at any ``spatial`` and
+    ``channels`` from 1 up to the kernels' int extents (``stage_cuda.takes``,
+    the rule the wrappers enforce).
+
+    The JAX package's rule (``stage_pallas.stage_fusable``) is the TPU's
+    lane alignment: channels a multiple of 128 and spatial**2 of 16, any
+    other geometry taking its jnp reference. The CUDA kernels tile by rows
+    and read any C and P, so every geometry the JAX rule admits is fusable
+    here too, and so are the unaligned ones it sends to the reference
+    (channels 64 at spatial 4, say).
+    """
+    return (spatial > 0 and channels > 0
+            and stage_cuda.takes(spatial * spatial, 2 * channels, dtype))

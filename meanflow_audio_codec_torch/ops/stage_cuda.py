@@ -53,18 +53,31 @@ def _kernels():
     return lib
 
 
+#: P and C of a launch stay below this (the kernels index them as int)
+_MAX_EXTENT = 2**31
+
+
+def takes(positions: int, channels: int, dtype: torch.dtype) -> bool:
+    """Whether the wrappers take a CUDA tensor ``[N, positions, channels]``
+    of ``dtype``: float32 or bfloat16, both extents below 2**31. ``_check``
+    raises exactly where this is False. A tensor with an empty extent is
+    taken and launches nothing; the grid's row limit (``kErrGrid``)
+    depends on N as well and is checked at launch."""
+    return dtype in _DTYPES and max(positions, channels) < _MAX_EXTENT
+
+
 def _check(name: str, x3: torch.Tensor, *others: tuple[str, torch.Tensor,
                                                         tuple[int, ...]]) -> int:
     """Validate a CUDA call's tensors; return the dtype code of ``x3``."""
     if x3.device.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {x3.device}")
-    if x3.dtype not in _DTYPES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {x3.dtype}")
     if x3.ndim != 3:
         raise ValueError(f"{name} takes x of shape [N, P, C], got "
                          f"{tuple(x3.shape)}")
-    if max(x3.shape[1:]) >= 2**31:
-        raise ValueError(f"{name}: P and C must each be below 2**31")
+    if not takes(x3.shape[1], x3.shape[2], x3.dtype):
+        raise (ValueError if x3.dtype in _DTYPES else TypeError)(
+            f"{name} takes float32 or bfloat16 with P and C below 2**31, "
+            f"got {x3.dtype} of shape {tuple(x3.shape)}")
     for label, t, shape in ((("x", x3, tuple(x3.shape)),) + others):
         if t.device != x3.device:
             raise ValueError(f"{name}: {label} is on {t.device}, x on "

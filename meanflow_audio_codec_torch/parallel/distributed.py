@@ -22,21 +22,25 @@ import os
 import torch
 import torch.distributed as dist
 
+from meanflow_audio_codec_torch.device import resolve_device
+
 
 def initialize_distributed(init_method: str | None = None,
                            world_size: int | None = None,
                            rank: int | None = None,
                            backend: str | None = None,
-                           device: str | torch.device | None = None) -> bool:
+                           device: str | torch.device = "cuda") -> bool:
     """Form the default process group when running multi-process.
 
     No-op (returns False) for a single process, so trainers can call it
     unconditionally; True when a group exists (formed here or before).
     ``world_size`` and ``rank`` default to ``WORLD_SIZE`` and ``RANK``;
     ``init_method`` to ``tcp://MASTER_ADDR:MASTER_PORT`` (``env://`` when
-    those are unset). ``backend`` defaults to ``nccl`` for a CUDA ``device``
-    (``cuda`` when a card is present and ``device`` is unset) and ``gloo``
-    for the CPU. With NCCL the process takes card ``LOCAL_RANK``.
+    those are unset). ``device`` is the card unless the caller passes
+    ``device="cpu"``: asking for a group on a host with no card raises, as
+    every entry point of the port does. ``backend`` defaults to ``nccl`` for
+    the card and ``gloo`` for the CPU. With NCCL the process takes card
+    ``LOCAL_RANK``.
     """
     if dist.is_initialized():
         return True
@@ -46,10 +50,9 @@ def initialize_distributed(init_method: str | None = None,
         return False
     if rank is None:
         rank = int(os.environ.get("RANK", "0"))
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(device)
     if backend is None:
-        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        backend = "nccl" if device.type == "cuda" else "gloo"
     if init_method is None:
         addr, port = os.environ.get("MASTER_ADDR"), os.environ.get(
             "MASTER_PORT")

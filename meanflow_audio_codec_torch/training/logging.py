@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from meanflow_audio_codec_torch.configs import diff_dicts
+from meanflow_audio_codec_torch.device import resolve_device
 
 
 def save_json(data: dict, path: Path | str) -> None:
@@ -139,10 +140,11 @@ def generate_training_summary(log_path: Path | str, total_time: float,
 
 
 def collect_experiment_metadata(config: Any,
-                                device: torch.device | str = "cpu") -> dict:
+                                device: torch.device | str = "cuda") -> dict:
     """The metadata.json payload at the start of a run: versions, the
-    device the run trains on, the config."""
-    device = torch.device(device)
+    device the run trains on (the card unless the caller passes
+    ``device="cpu"``; raises when there is no card), the config."""
+    device = resolve_device(device)
     on_card = device.type == "cuda"
     return {
         "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S"),

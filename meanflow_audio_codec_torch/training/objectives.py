@@ -27,6 +27,9 @@ Every objective's random inputs (``noise``, ``t``, ``r``, and the latent QAT
 noise ``qat_noise``) are drawn by :meth:`Objective.draw` from a
 ``torch.Generator``, or passed in (tests pass what the JAX loss drew), so a
 caller can draw them before a checkpointed loss that recomputes itself.
+:meth:`Objective.compute_loss` is the JAX package's loss-strategy API,
+``(loss, grads)`` for a train state; ``FlowMatchingLoss``, ``MeanFlowLoss``,
+``ImprovedMeanFlowLoss`` and ``LossStrategy`` are its aliases.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Any
 import torch
 import torch.autograd.forward_ad as fwAD
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from meanflow_audio_codec_torch.configs import CodecConfig
 from meanflow_audio_codec_torch.ops import stage
@@ -110,6 +114,47 @@ class Objective:
                                 qat.draw((batch, *model.latent_shape),
                                          generator, x.device))
         return out
+
+    def draws_for(self, state, x: torch.Tensor,
+                  generator: torch.Generator | None = None, **given) -> dict:
+        """:meth:`draw` for a train state's model. On a state split over
+        data ranks ``x`` is this rank's rows of the global batch: every rank
+        draws for the global batch (the same values, from the same seed) and
+        keeps its rows, so a sharded step sees the draws of the one-process
+        step; the ``given`` draws are the global batch's too."""
+        shards = state.data_size
+        if shards == 1:
+            return self.draw(state.model, x, generator, **given)
+        rows = x.shape[0]
+        every = x.new_empty((rows * shards, *x.shape[1:]))
+        draws = self.draw(state.model, every, generator, **given)
+        start = state.data_rank * rows
+        return {name: value[start:start + rows]
+                for name, value in draws.items()}
+
+    def compute_loss(self, state, generator: torch.Generator | None,
+                     x: torch.Tensor, remat: bool = False,
+                     has_aux: bool = False, **given):
+        """``(loss, grads)`` of the state's model on flat examples ``x``:
+        the JAX package's ``compute_loss(state, key, x)``, the reference's
+        loss-strategy API, and the differentiation of every train step.
+        The draws come from ``generator`` (or ``given``, as in
+        :meth:`loss`); ``grads`` holds one gradient per tensor of
+        ``state.params``, in that order (``TrainState.apply_gradients``
+        takes them so), this rank's alone on a state split over data ranks.
+        ``remat`` recomputes the loss in the backward pass, with the same
+        draws (``jax.checkpoint`` of the loss); ``has_aux`` returns
+        ``((loss, aux), grads)``, as ``jax.value_and_grad`` does."""
+        draws = self.draws_for(state, x, generator, **given)
+
+        def loss_fn():
+            return self.loss(state.model, x, **draws)
+
+        loss, aux = (checkpoint(loss_fn, use_reentrant=False) if remat
+                     else loss_fn())
+        grads = list(torch.autograd.grad(loss, state.params))
+        loss = loss.detach()
+        return ((loss, aux) if has_aux else loss), grads
 
     def _encode(self, model: nn.Module, x: torch.Tensor,
                 qat_noise: torch.Tensor | None = None) -> torch.Tensor:
@@ -260,13 +305,20 @@ class ImprovedMeanFlowObjective(Objective):
         return loss, {"mse": mse_loss(v_pred, target).detach()}
 
 
+# the JAX package's aliases, the reference's loss-strategy class names
+FlowMatchingLoss = FlowMatchingObjective
+MeanFlowLoss = MeanFlowObjective
+ImprovedMeanFlowLoss = ImprovedMeanFlowObjective
+LossStrategy = Objective
+
 METHODS = ("autoencoder", "flow_matching", "mean_flow", "improved_mean_flow")
 
 
 def create_loss_strategy(config: CodecConfig) -> Objective:
-    """The objective the config names, with the JAX package's defaults for
-    unset fields: an explicit ``loss_strategy`` wins, else ``method``, else
-    ``use_improved_mean_flow`` picks iMF or FM."""
+    """The objective the config (a ``CodecConfig``, which is also the
+    sectioned ``TrainFlowConfig``) names, with the JAX package's defaults
+    for unset fields: an explicit ``loss_strategy`` wins, else ``method``,
+    else ``use_improved_mean_flow`` picks iMF or FM."""
     name = config.loss_strategy
     if name is None:
         if config.method in METHODS:

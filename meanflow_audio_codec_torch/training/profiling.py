@@ -6,6 +6,8 @@ same record keys (``step_time``, ``avg_step_time``, ``achieved_tflops``,
 
   * a call's time ends with ``torch.cuda.synchronize()``: the trainer times
     one chunk of K steps per call, so the host waits once per chunk;
+    ``device_time`` times repeated calls of one function the same way, its
+    end forced by ``force_completion`` (a synchronize and a host read);
   * ``device_memory_stats`` reads ``torch.cuda.memory_allocated`` /
     ``max_memory_allocated`` and the card's total memory;
   * ``estimate_step_flops`` counts one probe step by the FLOP formulas of
@@ -21,12 +23,15 @@ same record keys (``step_time``, ``avg_step_time``, ``achieved_tflops``,
 from __future__ import annotations
 
 import time
+from collections.abc import Mapping
 from pathlib import Path
 from typing import Any
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from meanflow_audio_codec_torch.device import resolve_device
 
 #: dense bf16 peak FLOP/s by card name (NVIDIA's H100 SXM data sheet; the
 #: SXM part reports itself as "NVIDIA H100 80GB HBM3")
@@ -47,6 +52,45 @@ def synchronize(device: torch.device | str) -> None:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _tensors(out) -> list[torch.Tensor]:
+    """The tensors of ``out``: a tensor, or a tuple, list or dict of them
+    (nested)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, Mapping):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        return [t for item in out for t in _tensors(item)]
+    return []
+
+
+def force_completion(out) -> float:
+    """Wait for the card's work behind ``out`` (a tensor, or a tuple, list
+    or dict of them): ``torch.cuda.synchronize`` on each card it lies on,
+    then a host read of one element of its last tensor, which is
+    returned (0.0 when it holds none)."""
+    tensors = _tensors(out)
+    for device in {t.device for t in tensors if t.device.type == "cuda"}:
+        torch.cuda.synchronize(device)
+    leaves = [t for t in tensors if t.numel()]
+    return float(leaves[-1].reshape(-1)[0].item()) if leaves else 0.0
+
+
+def device_time(fn, *args, iters: int = 10, warmup: int = 1) -> float:
+    """Seconds per call of ``fn(*args)``: ``warmup`` calls, then ``iters``
+    calls timed together on the host's clock, each group ended by
+    :func:`force_completion` of the last call's output."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    force_completion(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    force_completion(out)
+    return (time.perf_counter() - t0) / iters
 
 
 def device_memory_stats(device: torch.device | str) -> dict:
@@ -96,15 +140,17 @@ def estimate_step_flops(probe, *args) -> float | None:
 
 
 class ProfilingTrainer:
-    """Wall-clock, memory and MFU instrumentation around the train loop."""
+    """Wall-clock, memory and MFU instrumentation around the train loop, on
+    the card unless the caller passes ``device="cpu"`` (raises when there
+    is no card)."""
 
     def __init__(self, log_writer=None, window: int = 100,
                  flops_per_step: float | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.log = log_writer
         self.window = window
         self.flops_per_step = flops_per_step
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.peak = peak_flops(self.device)
         self.step_times: list[float] = []
         self._t_step = 0.0

@@ -1,5 +1,7 @@
 """The train step and the chunk of K steps; counterparts of ``make_train_step``
-and ``make_multi_step`` in ``meanflow_audio_codec_tpu/training/train_step.py``.
+and ``make_multi_step`` in ``meanflow_audio_codec_tpu/training/train_step.py``,
+with its loss-strategy step ``train_step`` and its validation step
+``make_eval_step``.
 
 One step: tokenize and flatten (forward only: no gradient flows through the
 MDCT) -> the objective's draws -> its loss (recomputed in the backward pass
@@ -25,6 +27,10 @@ norm, and the guard decides the same way on every rank (the state's
     chunk = make_multi_step(create_loss_strategy(config), 16, adapter,
                             skip_nonfinite=config.skip_nonfinite_updates)
     state, series = chunk(state, audio_chunk, generator=gen)  # [16, B, T, C]
+    state, loss = train_step(state, gen, adapter.tokenize(audio),
+                             create_loss_strategy(config))
+    evaluate = make_eval_step(create_loss_strategy(config), adapter)
+    metrics = evaluate(state, gen, audio)  # {"loss": ..., "mse": ...}
 """
 
 from __future__ import annotations
@@ -32,7 +38,6 @@ from __future__ import annotations
 from collections.abc import Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from meanflow_audio_codec_torch.training.objectives import Objective
 from meanflow_audio_codec_torch.training.optim import (
@@ -58,26 +63,8 @@ def _check_devices(state: TrainState, **tensors) -> None:
                              f"state on {state.device}")
 
 
-def _draw(objective, state, x, generator, noise, t, r) -> dict:
-    """The objective's draws for ``x``. On a state split over data ranks
-    ``x`` is this rank's rows of the global batch: every rank draws for the
-    global batch (the same values, from the same seed) and keeps its rows,
-    so a sharded step sees the draws of the one-process step; ``noise``,
-    ``t`` and ``r``, when given, are the global batch's too."""
-    shards = state.data_size
-    if shards == 1:
-        return objective.draw(state.model, x, generator, noise=noise, t=t,
-                              r=r)
-    rows = x.shape[0]
-    every = x.new_empty((rows * shards, *x.shape[1:]))
-    draws = objective.draw(state.model, every, generator, noise=noise, t=t,
-                           r=r)
-    start = state.data_rank * rows
-    return {name: value[start:start + rows] for name, value in draws.items()}
-
-
 def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
-                     generator, noise, t, r):
+                     generator, given):
     """(metrics, update) of one step on ``batch``; nothing is written."""
     x = batch
     with torch.no_grad():
@@ -85,18 +72,13 @@ def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
             x = tokenizer.tokenize(x)
         if flatten and x.ndim > 2:
             x = x.reshape(x.shape[0], -1)
-    draws = _draw(objective, state, x, generator, noise, t, r)
-
-    def loss_fn():
-        return objective.loss(state.model, x, **draws)
-
-    loss, aux = (checkpoint(loss_fn, use_reentrant=False) if remat
-                 else loss_fn())
+    (loss, aux), grads = objective.compute_loss(
+        state, generator, x, remat=remat, has_aux=True, **given)
     # averaged over the data ranks before the norm, the clip and AdamW
-    grads = state.reduce_gradients(torch.autograd.grad(loss, state.params))
+    grads = state.reduce_gradients(grads)
     grad_norm = global_norm(grads)
     update = state.apply_gradients(grads, grad_norm)
-    metrics = state.mean_over_data({"loss": loss.detach(), **aux})
+    metrics = state.mean_over_data({"loss": loss, **aux})
     return {"loss": metrics.pop("loss"), "grad_norm": grad_norm,
             **metrics}, update
 
@@ -104,27 +86,26 @@ def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
 def make_train_step(objective: Objective, tokenizer=None,
                     flatten: bool = True, remat: bool = False,
                     skip_nonfinite: bool = False) -> Callable:
-    """Build ``step(state, batch, generator=None, noise=None, t=None,
-    r=None) -> (state, metrics)``.
+    """Build ``step(state, batch, generator=None, **given) -> (state,
+    metrics)``.
 
     ``tokenizer`` (a ``TokenAdapter``) turns raw audio into flat examples;
     ``flatten`` reshapes examples of more than one axis to one row each;
     ``remat`` recomputes the loss in the backward pass.
-    ``noise``, ``t`` and ``r`` go to the objective (drawn from ``generator``
-    when absent). With ``skip_nonfinite`` an update whose loss, gradient
-    norm or new parameters are not finite is dropped and the whole state
-    kept; ``metrics["update_ok"]`` says which happened. The batch, and
-    ``noise``, ``t`` and ``r`` when given, must lie on the state's device.
+    ``given`` draws (``noise``, ``t``, ``r``, ``qat_noise``) go to the
+    objective; the others are drawn from ``generator``. With
+    ``skip_nonfinite`` an update whose loss, gradient norm or new
+    parameters are not finite is dropped and the whole state kept;
+    ``metrics["update_ok"]`` says which happened. The batch and the given
+    draws must lie on the state's device.
     """
 
     def step(state: TrainState, batch: torch.Tensor,
-             generator: torch.Generator | None = None,
-             noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
-             r: torch.Tensor | None = None):
-        _check_devices(state, batch=batch, noise=noise, t=t, r=r)
+             generator: torch.Generator | None = None, **given):
+        _check_devices(state, batch=batch, **given)
         metrics, update = _loss_and_update(objective, tokenizer, flatten,
                                            remat, state, batch, generator,
-                                           noise, t, r)
+                                           given)
         ok = True
         if skip_nonfinite:
             ok = bool(state.agree(_finite(metrics["loss"],
@@ -162,10 +143,11 @@ def make_multi_step(objective: Objective, num_steps: int,
                              f"{batches.shape[0]}")
         series = []
         for i in range(num_steps):
-            draws = [d[i] if d is not None else None for d in (noise, t, r)]
+            given = {name: d[i] for name, d in
+                     (("noise", noise), ("t", t), ("r", r)) if d is not None}
             metrics, update = _loss_and_update(
                 objective, tokenizer, flatten, remat, state, batches[i],
-                generator, *draws)
+                generator, given)
             if skip_nonfinite:
                 ok = state.agree(_finite(metrics["loss"],
                                          metrics["grad_norm"], update))
@@ -178,3 +160,46 @@ def make_multi_step(objective: Objective, num_steps: int,
                        for name in series[0]}
 
     return run
+
+
+def train_step(state: TrainState, generator: torch.Generator | None,
+               x: torch.Tensor, loss_strategy: Objective, **given
+               ) -> tuple[TrainState, torch.Tensor]:
+    """One step through the reference's loss-strategy API, the JAX
+    package's ``train_step(state, key, x, loss_strategy)`` on flat examples
+    ``x``: ``make_train_step(loss_strategy, flatten=False)``'s step, whose
+    gradients come from ``loss_strategy.compute_loss``, with no tokenizer,
+    no remat and no non-finite guard. Returns ``(state, loss)``."""
+    state, metrics = make_train_step(loss_strategy, flatten=False)(
+        state, x, generator, **given)
+    return state, metrics["loss"]
+
+
+def make_eval_step(objective: Objective, tokenizer=None,
+                   flatten: bool = True) -> Callable:
+    """Build the loss-only validation step ``step(state, generator, batch,
+    **given) -> {"loss": ..., **aux}`` (the JAX package's ``make_eval_step``,
+    whose step takes ``(state, key, batch)``).
+
+    Under ``torch.no_grad()``: ``tokenizer`` (``MDCTTokenization``, whose
+    transform is the MDCT kernel on the card, ``ReshapeTokenization`` or a
+    ``TokenAdapter``) turns the batch into tokens, ``flatten`` reshapes
+    examples of more than one axis to one row each, and the objective's
+    loss is taken with draws from ``generator`` (or ``given``). Nothing of
+    the state changes; the metrics stay on the state's device."""
+
+    def step(state: TrainState, generator: torch.Generator | None,
+             batch: torch.Tensor, **given) -> dict:
+        _check_devices(state, batch=batch, **given)
+        with torch.no_grad():
+            x = batch
+            if tokenizer is not None:
+                x = tokenizer.tokenize(x)
+            if flatten and x.ndim > 2:
+                x = x.reshape(x.shape[0], -1)
+            loss, aux = objective.loss(
+                state.model, x,
+                **objective.draws_for(state, x, generator, **given))
+        return {"loss": loss, **aux}
+
+    return step

@@ -1267,3 +1267,117 @@ def test_two_gloo_ranks_on_the_card_step_as_one_process(device, tmp_path):
         assert float((flat - want).norm() / want.norm()) <= 1e-5
         assert abs(got["loss"] - float(metrics["loss"])) <= 1e-5 * abs(
             float(metrics["loss"]))
+
+
+def _interface_setup(device, fused: bool):
+    """A small float32 convnet codec state on the card, its iMF objective
+    and its MDCT token adapter (W 128)."""
+    from meanflow_audio_codec_torch.configs import config_from_dict
+    from meanflow_audio_codec_torch.models.factories import create_flow_model
+    from meanflow_audio_codec_torch.ops.tokenize import MDCTTokenization
+    from meanflow_audio_codec_torch.training.adapter import (
+        adapter_from_config,
+    )
+    from meanflow_audio_codec_torch.training.objectives import (
+        create_loss_strategy,
+    )
+    from meanflow_audio_codec_torch.training.optim import (
+        TrainState,
+        make_optimizer,
+    )
+
+    config = config_from_dict({
+        "base": {"batch_size": 2, "n_steps": 10, "base_lr": 1e-3,
+                 "weight_decay": 0.0, "seed": 0},
+        "model": {"noise_dimension": 256, "condition_dimension": 16,
+                  "latent_dimension": 8, "num_blocks": 2,
+                  "architecture": "convnet",
+                  "architecture_options": {"channels": 32, "spatial": 4,
+                                           "bottleneck_dim": 64,
+                                           "lift_channels": 8,
+                                           "fused_stage": fused}},
+        "dataset": {"dataset": "audio", "tokenization_strategy": "mdct",
+                    "tokenization_config": {"window_size": 128}},
+        "method": {"method": "improved_mean_flow",
+                   "use_improved_mean_flow": True},
+        "training": {"sample_every": 10, "sample_seed": 0,
+                     "sample_steps": 1},
+        "tpu": {"precision": "float32"}})
+    model = create_flow_model(config, generator=torch.Generator().manual_seed(0))
+    state = TrainState(model, make_optimizer(config), device=device)
+    adapter = adapter_from_config(config, MDCTTokenization(128))
+    return state, create_loss_strategy(config), adapter
+
+
+def test_eval_step_launches_one_mdct_a_call(device):
+    """``make_eval_step`` with an MDCT token adapter tokenizes through the
+    MDCT kernel, once a call, and launches nothing else; its loss equals
+    ``objective.loss`` on the same tokens and draws."""
+    from meanflow_audio_codec_torch.training.train_step import make_eval_step
+
+    state, objective, adapter = _interface_setup(device, fused=False)
+    gen = torch.Generator(device).manual_seed(1)
+    audio = torch.randn(2, 4096, 2, device=device, generator=gen)
+    with torch.no_grad():
+        x = adapter.tokenize(audio)
+    draws = objective.draws_for(state, x, gen)
+    step = make_eval_step(objective, adapter)
+    _zero_counts()
+    metrics = [step(state, None, audio, **draws) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert mdct_cuda_mod.launches == 3 and imdct_cuda_mod.launches == 0
+    assert max(stage_cuda.launches.values()) == 0
+    with torch.no_grad():
+        ref, _ = objective.loss(state.model, x, **draws)
+    torch.testing.assert_close(metrics[-1]["loss"], ref, rtol=1e-5, atol=0)
+
+
+def test_fused_compute_loss_launches_the_stage_kernels(device):
+    """``compute_loss`` and ``train_step`` of a ``fused_stage`` model launch
+    all three stage kernels; the unfused model's none."""
+    from meanflow_audio_codec_torch.training.train_step import train_step
+
+    for fused in (False, True):
+        state, objective, adapter = _interface_setup(device, fused=fused)
+        gen = torch.Generator(device).manual_seed(2)
+        audio = torch.randn(2, 4096, 2, device=device, generator=gen)
+        with torch.no_grad():
+            x = adapter.tokenize(audio)
+        _zero_counts()
+        loss, grads = objective.compute_loss(state, gen, x)
+        state, step_loss = train_step(state, gen, x, objective)
+        torch.cuda.synchronize()
+        counts = list(stage_cuda.launches.values())
+        assert min(counts) > 0 if fused else max(counts) == 0
+        assert len(grads) == len(state.params) and state.step == 1
+        assert torch.isfinite(loss) and torch.isfinite(step_loss)
+
+
+def test_device_time_returns_positive_seconds(device):
+    """``training/profiling.device_time`` of the MDCT kernel: positive
+    seconds a call, the kernel launched warmup + iters times."""
+    from meanflow_audio_codec_torch.training.profiling import device_time
+
+    cfg = MDCTConfig(512, 256)
+    x = torch.randn(8, 32768, device=device)
+    _zero_counts()
+    seconds = device_time(mdct_cuda, x, cfg, iters=5, warmup=2)
+    assert seconds > 0 and mdct_cuda_mod.launches == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16], ids=str)
+def test_stage_fusable_matches_the_launches(device, dtype):
+    """Each stage op launches its kernel on ``[2, S*S, C]`` exactly where
+    ``stage_fusable(S, C, dtype)`` says (float16: the wrappers' TypeError)."""
+    for spatial, channels in [(8, 256), (4, 64), (3, 48)]:
+        x = torch.randn(2, spatial * spatial, channels, device=device,
+                        dtype=dtype)
+        _zero_counts()
+        try:
+            stage.fused_ln_norm(x)
+            launched = True
+        except TypeError:
+            launched = False
+        assert launched == stage.stage_fusable(spatial, channels, dtype)
+        assert stage_cuda.launches["ln_norm_cuda"] == int(launched)

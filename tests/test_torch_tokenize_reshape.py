@@ -20,11 +20,12 @@ import torch
 
 from meanflow_audio_codec_tpu.ops import tokenize as jtok
 from meanflow_audio_codec_tpu.training.trainer import TokenAdapter as JaxAdapter
-from meanflow_audio_codec_torch.ops import mdct as tmdct
 from meanflow_audio_codec_torch.ops import tokenize as ttok
 from meanflow_audio_codec_torch.training.adapter import TokenAdapter
 
 jmdct = importlib.import_module("meanflow_audio_codec_tpu.ops.mdct")
+# the module: the package's ``mdct`` is the function, as in the JAX package
+tmdct = importlib.import_module("meanflow_audio_codec_torch.ops.mdct")
 
 FFT_TOL = dict(rtol=1e-4, atol=1e-3)
 
@@ -170,17 +171,17 @@ def test_fft_imdct_matches_jax_and_the_direct_path(hop, normalize):
     np.testing.assert_allclose(got.numpy(), direct.numpy(), **FFT_TOL)
 
 
-def test_threshold_picks_the_path(monkeypatch):
-    assert tmdct.FFT_THRESHOLD == jmdct.DEFAULT_FFT_THRESHOLD == 4096
+def test_threshold_picks_the_path():
+    assert (tmdct.DEFAULT_FFT_THRESHOLD == jmdct.DEFAULT_FFT_THRESHOLD
+            == tmdct.MDCTConfig().use_fft_threshold == 4096)
     x = torch.from_numpy(_x((1, 600), seed=6))
-    cfg = tmdct.MDCTConfig(64)
+    cfg = tmdct.MDCTConfig(64, use_fft_threshold=128)
     X = tmdct.mdct_direct(x, cfg)
-    monkeypatch.setattr(tmdct, "FFT_THRESHOLD", 128)
     np.testing.assert_array_equal(tmdct.mdct(x, cfg).numpy(),
                                   tmdct.mdct_direct(x, cfg).numpy())
     np.testing.assert_array_equal(tmdct.imdct(X, cfg).numpy(),
                                   tmdct.imdct_direct(X, cfg).numpy())
-    monkeypatch.setattr(tmdct, "FFT_THRESHOLD", 64)
+    cfg = tmdct.MDCTConfig(64, use_fft_threshold=64)
     np.testing.assert_array_equal(tmdct.mdct(x, cfg).numpy(),
                                   tmdct.mdct_fft(x, cfg).numpy())
     np.testing.assert_array_equal(tmdct.imdct(X, cfg).numpy(),
