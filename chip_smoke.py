@@ -7,6 +7,7 @@
     python3 chip_smoke.py --parallel-only   # the build, then phase 15
     python3 chip_smoke.py --orbax-only   # the build, then phase 16
     python3 chip_smoke.py --interfaces-only   # the build, then phase 17
+    python3 chip_smoke.py --proj-only   # the build, then phase 18
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -28,8 +29,9 @@ and prints no result line):
      rows x 4864 samples), the MLP codec's tokenize (256 rows x 65536
      samples) and decode ([256, 255, 512]), mnist + mdct's (128 rows x 784
      pixels: 2 frames), the matrix smoke's (8 rows x 512 samples, W
-     256, hop 128) and the timing tools' codec geometry (32 rows x 480000
-     samples, W 576, hop 288), rtol 1e-4 / atol 1e-3; the
+     256, hop 128), the timing tools' codec geometry (32 rows x 480000
+     samples, W 576, hop 288) and the audio autoencoder trial's (16 rows x
+     16384 samples, W 256, hop 128), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels), benchmark_conv_mfu's ch512 rows (2048 x 64 x 512 or
      1024) and ragged shapes, in bf16 and f32, with the stage
@@ -118,9 +120,9 @@ and prints no result line):
      meanflow_audio_codec_torch.train --config configs/corpus_rehearsal.json
      --data-dir <corpus>`` through ``main`` at full width (114,472,384
      parameters, bf16, chunks of 16, ``dots_saveable``, the device pool cut
-     from 1024 clips to 64), 32 steps then ``--resume`` to 48, each run
-     checkpointing and sampling once, at its end; the trainer phase's
-     checks of the workdir and the parameter count; chunk ms per step,
+     from 1024 clips to 64), one run of 48 steps, checkpointing (one full
+     and one serving file) and sampling once, at its end; the trainer
+     phase's checks of the workdir and the parameter count; chunk ms per step,
      steps/s, frames/s, peak memory, FLOPs and MFU beside the loader's
      rate, and the seconds and bytes of every checkpoint write; the exact
      stream (``--device-pool-clips 0``, the default for a corpus) for 16
@@ -149,7 +151,7 @@ and prints no result line):
      within relative L2 1e-5); ``tools/export_serving``, whose file served
      alone decodes as the full checkpoint's EMA, bit for bit; and
      ``tools/export_samples --num-clips 2`` with its WAV names checked;
-  11. objectives: one bare bf16 step each (median of 5 after 2 warm-ups,
+  11. objectives: one bare bf16 step each (median of 3 after 1 warm-up,
      peak memory) of flow matching, mean flow, the autoencoder, iMF without
      the stop-gradient (plain and ``fused_stage``) and iMF with the learned
      weighting, at frontier-v2's batch, then one 2-step sampling pass for
@@ -202,10 +204,11 @@ and prints no result line):
      ``ch512_s8_lift64_bn1024_b2048_dots`` and its ``_fused`` row,
      ``benchmark_streaming``'s ``light_ch256`` in 0.1 s chunks, the
      sampler, objectives and MF-vs-iMF scripts at their defaults (the
-     sampler's NFE cut to 1 and 10, the MF-vs-iMF steps from 400 to 50,
-     the codec geometry's timed groups from 3 to 1), the five probes at
-     their shapes (the A/B cut to 1 round of 2 calls a side, the int8
-     chain's repeats to 2, the int8 conv's and the stage probe's to 1) and,
+     sampler's NFE cut to 1 and 10, the objectives' steps from 30 to 10,
+     the MF-vs-iMF steps from 400 to 20, the codec geometry's timed groups
+     from 3 to 1), the five probes at their shapes (the A/B cut to 1 round
+     of 2 calls a side, the int8 chain's, the int8 conv's and the stage
+     probe's repeats to 1) and,
      last, the five data scripts over a 20-file synthetic WAV
      corpus; fails on an error row,
      a return code other than 0, a time or rate that is not finite and
@@ -260,6 +263,16 @@ and prints no result line):
      geometries in bf16, f32 and f16; ``training/profiling.device_time``
      of the bf16 codec's round trip on 4 clips x 32768 beside ``time_ms``
      of the same call, 12 MDCT and 12 IMDCT launches;
+  18. (after 17) the proj trials: ``meanflow_audio_codec_torch.proj.
+     mnist_trial``, ``mnist_autoencoder`` and ``audio_autoencoder`` through
+     ``main`` at their published widths (bf16, batch 128, 128 and 8 clips
+     x 16384 samples), their steps cut from 2000/1000/1000 to
+     ``PROJ_STEPS``: ms a step, peak memory, first and last loss (finite),
+     the output files, and the audio trial's MDCT launches (at least one a
+     step) and IMDCT launches (at least one); then one float32 step of
+     each trial's model, state and step on the card against the same step
+     on the CPU (same weights, batch and draws; loss rtol 1e-4, Adam's
+     first moments within relative L2 1e-5);
   14. a ``{"kernels": [...]}`` line (launches per path: the transform
      layers' gradient, round trip, train, trainer, codec bytes, codec CLI,
      quantized serving, streaming, QAT trainer, eval_suite,
@@ -269,13 +282,14 @@ and prints no result line):
      the flag-driven trainer, each timing tool that launches a kernel,
      the one-rank trainer and the two ranks' step, the orbax fixture,
      trainer and serving, phase 17's eval step, its two ``train_step``
-     paths and ``device_time``'s round trip),
+     paths and ``device_time``'s round trip, and the three proj trials),
      then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 With ``--parallel-only`` it builds, then runs phase 15 alone and prints
-its launches but no result line; ``--orbax-only`` and
-``--interfaces-only`` do the same for phases 16 and 17. With ``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
+its launches but no result line; ``--orbax-only``, ``--interfaces-only``
+and ``--proj-only`` do the same for phases 16, 17 and 18. With
+``--transforms-only`` it runs phases 1-3 for the MDCT and IMDCT alone
 (no instruction mix) and prints their line of results but no result line:
 copied into another checkout of the port, it times that checkout's kernels
 at the same shapes. With ``--jvp-tape`` it builds, then times bare bf16 iMF
@@ -339,6 +353,12 @@ from meanflow_audio_codec_torch.ops.stage import stage_fusable
 from meanflow_audio_codec_torch.ops.tokenize import (
     MDCTTokenization,
     create_tokenization_strategy,
+)
+from meanflow_audio_codec_torch import proj
+from meanflow_audio_codec_torch.proj import (
+    audio_autoencoder,
+    mnist_autoencoder,
+    mnist_trial,
 )
 from meanflow_audio_codec_torch.tools.benchmarks._timing import card_line
 from meanflow_audio_codec_torch.training import profiling
@@ -415,6 +435,10 @@ PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak, the same data sheet
 INT8_PRODUCTS_PER_DECODE = 72
 QUANT_REL_L2 = 0.05
 SIMPLE_STEPS = 4  # train_epoch's steps per objective in the simple trainer
+#: the proj trials' steps, cut from the scripts' 2000 (mnist_trial) and
+#: 1000 (the autoencoders), and the examples of their card-against-CPU step
+PROJ_STEPS = 64
+PROJ_CHECK_ROWS, PROJ_CHECK_CLIPS = 16, 2
 
 KERNELS = {
     "mdct_cuda": dict(
@@ -466,7 +490,7 @@ OBJECTIVES = {
     "imf_no_stop_gradient_fused": (dict(use_stop_gradient=False), True),
     "imf_learned": (dict(loss_weighting="learned"), False),
 }
-OBJ_WARMUP, OBJ_STEPS = 2, 5
+OBJ_WARMUP, OBJ_STEPS = 1, 3  # cut from 2, 5 to make room for phase 18
 #: the remat phase: label -> (architecture_options over the config's,
 #: tpu.remat, fused_stage); ``dots_saveable`` checkpoints each stage's
 #: elementwise segments, policy None each stage whole (models/remat.py); the
@@ -616,11 +640,12 @@ def check_kernels(device: torch.device) -> dict:
     x 32768 samples, and the trainer's sampling decode, [32, 127, 512]) and
     at a streaming push's (2 rows x 4864 samples, 18 frames), and at the
     shapes of the other families' paths (the MLP codec's 256 x 65536,
-    mnist's 128 x 784, the matrix smoke's 8 x 512 at W 256); times at the
-    codec shape (keys ``ms``, ...) and at each other shape but the ragged
-    one (``ms_10s``, ``ms_train``, ``ms_stream``, ``ms_mlp_codec``,
+    mnist's 128 x 784, the matrix smoke's 8 x 512 at W 256, the audio
+    autoencoder trial's 16 x 16384 at W 256); times at the codec shape
+    (keys ``ms``, ...) and at each other shape but the ragged one
+    (``ms_10s``, ``ms_train``, ``ms_stream``, ``ms_mlp_codec``,
     ``ms_mnist``, ``ms_matrix``, ``ms_codec_geometry`` (the timing tools'
-    32 x 480000 at W 576), ...)."""
+    32 x 480000 at W 576), ``ms_proj_audio``, ...)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {"max_abs_err": 0.0}
                for name in ("mdct_cuda", "imdct_cuda")}
@@ -638,7 +663,9 @@ def check_kernels(device: torch.device) -> dict:
             ("matrix", 8, 512, 256, 128),
             # the timing tools' codec geometry: 16 stereo clips of 10 s at
             # 48 kHz, W 576 (benchmark_codec_geometry, probe_codec_ab)
-            ("codec_geometry", 32, 480000, 576, 288)]:
+            ("codec_geometry", 32, 480000, 576, 288),
+            # the audio autoencoder trial: 8 stereo clips of 16384, W 256
+            ("proj_audio", 16, 16384, 256, 128)]:
         cfg = MDCTConfig(w, hop)
         nf = num_frames_for_length(length, w, hop)
         out_len = output_length(nf, w, hop)
@@ -1198,20 +1225,22 @@ def _read_wav(path: Path) -> tuple[int, int, int]:
         return wav.getnframes(), wav.getnchannels(), wav.getframerate()
 
 
-def _check_trainer_workdir(workdir: Path
+def _check_trainer_workdir(workdir: Path, resumed: bool = True
                            ) -> tuple[list[dict], dict, dict]:
-    """The trainer's records after 32 steps and a resume to 48: 48 step
-    records with finite loss and grad_norm and update_ok, the resumed run
-    starting at step 32, the retained checkpoints and sidecars, a serving
-    file holding the run's EMA, the WAV sample and the summary. Returns the
-    step records, the summary and the EMA of step 48."""
+    """The trainer's records after 32 steps and a resume to 48 (or, with
+    ``resumed`` False, one run of 48): 48 step records with finite loss
+    and grad_norm and update_ok, the resumed run starting at step 32, the
+    retained checkpoints and sidecars, a serving file holding the run's
+    EMA, the WAV sample and the summary. Returns the step records, the
+    summary and the EMA of step 48."""
     records = read_log(workdir / "logs" / "train_log.jsonl")
     starts = [i for i, r in enumerate(records) if r.get("event") == "start"]
     steps = [r for r in records if "event" not in r]
-    if len(starts) != 2 or [r["step"] for r in steps] != list(range(48)):
+    if (len(starts) != 1 + resumed
+            or [r["step"] for r in steps] != list(range(48))):
         raise AssertionError(f"trainer log: start events at {starts}, steps "
                              f"{[r['step'] for r in steps]}")
-    if records[starts[1] + 1]["step"] != 32:
+    if resumed and records[starts[1] + 1]["step"] != 32:
         raise AssertionError("the resumed run did not start at step 32")
     bad = [r["step"] for r in steps
            if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
@@ -1223,6 +1252,8 @@ def _check_trainer_workdir(workdir: Path
     want = ["serving_step_00032.msgpack", "serving_step_00048.msgpack",
             "step_00032.metadata.json", "step_00032.msgpack",
             "step_00048.metadata.json", "step_00048.msgpack"]
+    if not resumed:
+        want = [name for name in want if "00032" not in name]
     if names != want:
         raise AssertionError(f"checkpoints: {names}, expected {want}")
     full = serialization.msgpack_restore(
@@ -1242,7 +1273,8 @@ def _check_trainer_workdir(workdir: Path
     summary = json.loads((workdir / "summary.json").read_text())
     if not summary.get("steps_per_sec") or not summary.get("flops_per_step"):
         raise AssertionError(f"summary.json: {summary}")
-    print(f"trainer workdir: 48 steps logged (resumed at 32), finite loss "
+    run = "resumed at 32" if resumed else "one run"
+    print(f"trainer workdir: 48 steps logged ({run}), finite loss "
           f"and grad_norm, update_ok on every step; {names}; serving params "
           f"== the run's EMA ({len(ema)} tensors); step_00048.wav {frames} "
           f"frames x {channels}", flush=True)
@@ -2023,9 +2055,10 @@ def corpus_trainer_path(device: torch.device, card: str, corpus: Path,
     """``python -m meanflow_audio_codec_torch.train --config
     configs/corpus_rehearsal.json --data-dir <corpus>`` through ``main`` at
     full width (bf16, chunks of 16, the device pool cut from 1024 clips to
-    64): 32 steps, then ``--resume`` to 48, each run saving and sampling
-    once, at its end. Returns the launch counts, the run's EMA and its chunk
-    time per step."""
+    64): one run of 48 steps, saving (one full and one serving checkpoint)
+    and sampling once, at its end; the trainer phase holds ``--resume``.
+    Returns the launch counts, the run's EMA and its chunk time per
+    step."""
     config = _corpus_config()
     args = ["--config", str(CORPUS_CONFIG), "--data-dir", str(corpus),
             "--device-pool-clips", "64", "--workdir", str(workdir)]
@@ -2034,19 +2067,18 @@ def corpus_trainer_path(device: torch.device, card: str, corpus: Path,
     zero_launches()
     t0 = time.perf_counter()
     with timed_checkpoint_writes() as writes:
-        for extra in (["--n-steps", "32"], ["--resume", "--n-steps", "48"]):
-            if train_cli.main(args + extra) != 0:
-                raise AssertionError(f"corpus train main {extra} failed")
+        if train_cli.main(args + ["--n-steps", "48"]) != 0:
+            raise AssertionError("corpus train main failed")
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    steps, summary, ema = _check_trainer_workdir(workdir)
+    steps, summary, ema = _check_trainer_workdir(workdir, resumed=False)
     counts = {r.get("param_count") for r in read_log(
         workdir / "logs" / "train_log.jsonl") if r.get("event") == "start"}
     if counts != {CORPUS_PARAMS}:
         raise AssertionError(f"corpus trainer: {counts} parameters, "
                              f"expected {CORPUS_PARAMS}")
-    print(f"corpus trainer path launches (32 + 16 steps, 2 samplings): "
+    print(f"corpus trainer path launches (48 steps, 1 sampling): "
           f"{launches}", flush=True)
     if launches["mdct_cuda"] < 48 or launches["imdct_cuda"] < 1:
         raise AssertionError("the corpus trainer did not run the MDCT on "
@@ -2066,7 +2098,7 @@ def corpus_trainer_path(device: torch.device, card: str, corpus: Path,
           f"{chunk_ms[1]:.3f} / {chunk_ms[2]:.3f} ms (chunks 1-3; the first "
           f"includes the start), median after the first {med:.3f} ms, "
           f"{1e3 / med:.3f} steps/s, {rows / med * 1e3:.1f} frames/s; wall "
-          f"{wall:.1f} s for both runs; peak memory {peak_gb:.3f} GB; "
+          f"{wall:.1f} s for the run; peak memory {peak_gb:.3f} GB; "
           f"{flops / 1e9:.1f} GFLOP per step, {tflops:.2f} achieved "
           f"TFLOP/s, {mfu}", flush=True)
     print(f"[{card}] loader against the step: the native loader sustains "
@@ -2074,9 +2106,9 @@ def corpus_trainer_path(device: torch.device, card: str, corpus: Path,
           f"{step_clips_s:.1f} clips/s ({loader_clips_s / step_clips_s:.2f}x)",
           flush=True)
     _print_writes(writes, "corpus trainer")
-    if len(writes) != 4:
+    if len(writes) != 2:
         raise AssertionError(f"corpus trainer wrote {len(writes)} "
-                             "checkpoints, expected 2 runs x (full, serving)")
+                             "checkpoints, expected one full and one serving")
     return launches, ema, med
 
 
@@ -3166,9 +3198,10 @@ _TIMED_KEY = re.compile(r"^ms_|(ms|sec|rtf|tops|tflops|mfu|speedup)$")
 #: A/B's 4 rounds (14 s a round at ch512), the int8 probes' 3 repeats (the
 #: stage probe's and the int8 conv's to 1: 19.3 and 6.9 s at 2)
 TIMING_CUTS = {"benchmark_sampler": ["--nfe", "1", "10"],
-               "benchmark_meanflow_vs_improved": ["--steps", "50"],
+               "benchmark_train_objectives": ["--steps", "10"],
+               "benchmark_meanflow_vs_improved": ["--steps", "20"],
                "probe_codec_ab": ["--rounds", "1"],
-               "probe_int8": ["--repeats", "2"],
+               "probe_int8": ["--repeats", "1"],
                "probe_int8_conv": ["--repeats", "1"],
                "probe_stage_q": ["--repeats", "1"]}
 #: cuts of the tools' module constants, set for the phase: the codec
@@ -4103,6 +4136,121 @@ def interfaces_phase(device: torch.device, card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the proj trials (phase 18)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_train_loop(module):
+    """Record the seconds (the card synchronised at both ends) and the
+    losses of each ``train`` loop a trial module's ``main`` runs."""
+    real, runs = module.train, []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, losses))
+        return state, losses
+
+    module.train = timed
+    try:
+        yield runs
+    finally:
+        module.train = real
+
+
+def _proj_trial(module, device: torch.device, card: str, scratch: Path,
+                widths: str) -> dict:
+    """One trial through ``main`` at its published widths, ``PROJ_STEPS``
+    steps; returns its launch counts."""
+    name = module.__name__.rsplit(".", 1)[1]
+    workdir = scratch / name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launches()
+    t0 = time.perf_counter()
+    with timed_train_loop(module) as runs:
+        if module.main(["--steps", str(PROJ_STEPS), "--workdir",
+                        str(workdir)]) != 0:
+            raise AssertionError(f"proj {name}: main failed")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    ((seconds, losses),) = runs
+    if len(losses) != PROJ_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"proj {name}: losses {losses}")
+    ms = 1e3 * seconds / PROJ_STEPS
+    outputs = sorted(p.name for p in workdir.iterdir())
+    print(f"[{card}] proj {name} ({widths}; {PROJ_STEPS} steps, the "
+          f"script's {1000 if 'autoencoder' in name else 2000} cut): "
+          f"{ms:.3f} ms a step (the loop's wall, the card synchronised at "
+          f"both ends), peak memory {peak_gb:.3f} GB, loss {losses[0]:.6f} "
+          f"-> {losses[-1]:.6f}; main's wall {wall:.1f} s; outputs "
+          f"{outputs}; launches {launches}", flush=True)
+    return launches
+
+
+def _proj_step_against_cpu(device: torch.device) -> None:
+    """One float32 step of each trial's model, state and step on the card
+    against the CPU (``proj.step_against_cpu``): the same weights, batch
+    and draws."""
+    gen = torch.Generator().manual_seed(19)
+    mnist = torch.rand(PROJ_CHECK_ROWS, 784, generator=gen) * 2 - 1
+    audio = synth_audio(PROJ_CHECK_CLIPS, 16384, gen, torch.device("cpu"))
+    draws = ImprovedMeanFlowLoss().draw(
+        mnist_trial.build_model(compute_dtype=torch.float32), mnist,
+        torch.Generator().manual_seed(20))
+    trials = {
+        "mnist_trial": (mnist_trial.build_model, mnist_trial.build_step(),
+                        mnist, draws),
+        "mnist_autoencoder": (mnist_autoencoder.build_model,
+                              mnist_autoencoder.build_step(), mnist, {}),
+        "audio_autoencoder": (
+            audio_autoencoder.build_model, audio_autoencoder.build_step(
+                audio_autoencoder.build_tokenizer()), audio, {})}
+    for name, (build_model, step, batch, given) in trials.items():
+        loss_cpu, loss_card, rel = proj.step_against_cpu(
+            build_model, step, batch, device, **given)
+        print(f"proj {name}, float32 step, card vs CPU: loss "
+              f"{loss_card:.8f} vs {loss_cpu:.8f}, first-moment rel_l2 "
+              f"{rel:.3e} (loss rtol 1e-4, rel_l2 <= {TRAIN_REL_L2})",
+              flush=True)
+        if not (abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+                and rel <= TRAIN_REL_L2):
+            raise AssertionError(f"proj {name} card vs CPU: loss "
+                                 f"{loss_card} vs {loss_cpu}, rel_l2 {rel}")
+
+
+def proj_phase(device: torch.device, card: str, scratch: Path) -> dict:
+    """Phase 18: the three proj trials at their published widths, then
+    each one's float32 step against the CPU; returns the launch counts."""
+    paths = {}
+    for module, widths in (
+            (mnist_trial, "ConditionalConvFlow(784, 128, 4, 128), bf16, "
+                          "batch 128"),
+            (mnist_autoencoder, "MLPMixerAutoencoder(784, 16, 64, 64, 64, "
+                                "256, 256), bf16, batch 128"),
+            (audio_autoencoder, "MLPMixerAutoencoder(512, 8, 64, 32, 32, "
+                                "256, 256), bf16, 8 clips x 16384, W 256 "
+                                "stereo frame tokens")):
+        name = module.__name__.rsplit(".", 1)[1]
+        paths[f"proj_{name}"] = _proj_trial(module, device, card, scratch,
+                                            widths)
+        torch.cuda.empty_cache()
+    audio = paths["proj_audio_autoencoder"]
+    print(f"proj audio_autoencoder: {audio['mdct_cuda']} MDCT and "
+          f"{audio['imdct_cuda']} IMDCT launches over {PROJ_STEPS} steps "
+          "and the held-out reconstruction", flush=True)
+    if audio["mdct_cuda"] < PROJ_STEPS or audio["imdct_cuda"] < 1:
+        raise AssertionError("the audio trial did not run the MDCT on every "
+                             "step and the IMDCT in its reconstruction")
+    _proj_step_against_cpu(device)
+    return paths
+
+
 def profile(label: str, fn, top: int = 15) -> None:
     """Device time by kernel (the ``top`` kernels) for one call of ``fn``,
     and the device's busy share of its wall time."""
@@ -4149,6 +4297,9 @@ def main() -> int:
     parser.add_argument("--interfaces-only", action="store_true",
                         help="the build, then phase 17 (the layer "
                              "interfaces) alone")
+    parser.add_argument("--proj-only", action="store_true",
+                        help="the build, then phase 18 (the proj trials) "
+                             "alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4201,6 +4352,11 @@ def main() -> int:
     if args.interfaces_only:
         print(json.dumps({"interfaces": interfaces_phase(device, card)}),
               flush=True)
+        return 0
+    if args.proj_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"proj": proj_phase(device, card, Path(tmp))}),
+                  flush=True)
         return 0
     clock = [time.perf_counter()]
 
@@ -4315,6 +4471,9 @@ def main() -> int:
     lap("orbax")
     paths.update(interfaces_phase(device, card))
     lap("interfaces")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(proj_phase(device, card, Path(tmp)))
+    lap("proj trials")
 
     results["gelu_grn_cuda"]["launches_by_kernel"] = {
         variant: sum(p["gelu_grn_variants"][variant] for p in paths.values())

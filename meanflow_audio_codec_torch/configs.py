@@ -733,8 +733,8 @@ def _deep_merge(base: dict, override: dict) -> dict:
     return out
 
 
-def merge_configs(config: CodecConfig, override: dict) -> CodecConfig:
-    """``config`` with an override dict deep-merged into its v2 dict: a
+def merge_configs(base: CodecConfig, override: dict) -> CodecConfig:
+    """``base`` with an override dict deep-merged into its v2 dict: a
     hierarchical one (``{"base": {...}, ...}``) or flat keys, each lifted
     into the section holding it (``dataset``/``method`` as a dict are the
     sections, as a string the fields)."""
@@ -749,7 +749,7 @@ def merge_configs(config: CodecConfig, override: dict) -> CodecConfig:
                 lifted[key] = value
         override = lifted
         override.pop("config_version", None)
-    return config_from_dict(_deep_merge(config.to_dict(), override))
+    return config_from_dict(_deep_merge(base.to_dict(), override))
 
 
 def _flatten(d: dict, prefix: str = "") -> dict:

@@ -145,22 +145,28 @@ class GlobalResponseNormalization(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     """3x3 conv -> LN -> 1x1 expand -> GELU -> [GRN] -> 1x1 contract,
-    layer-scaled, plus the residual (inference: no stochastic depth).
+    layer-scaled, with optional stochastic depth, plus the residual.
 
     The 3x3 conv is a full convolution (all input channels to each output
-    channel), as in the JAX package. ``fused_stage=True`` runs the LN after
-    the 3x3 conv and the GELU + GRN through the fused ops.
+    channel), as in the JAX package. With ``drop_path`` p > 0 and
+    ``train=True`` each example keeps its branch with probability 1 - p,
+    scaled by 1 / (1 - p): ``keep`` (``[B]``, 0 or 1) gives the mask, or it
+    is drawn by ``torch.bernoulli`` from ``generator`` on the input's device
+    (the JAX block draws it from its ``"drop_path"`` rng).
+    ``fused_stage=True`` runs the LN after the 3x3 conv and the GELU + GRN
+    through the fused ops.
     ``remat_segments=True`` recomputes the LN and the GELU + GRN in the
     backward pass and keeps the products' outputs (``models/remat.py``).
     ``quantized=True`` serves the three convs in W8A8 int8.
     """
 
-    def __init__(self, dim: int, use_grn: bool = True,
-                 layer_scale_init_value: float = 1e-6,
+    def __init__(self, dim: int, drop_path: float = 0.0,
+                 use_grn: bool = True, layer_scale_init_value: float = 1e-6,
                  fused_stage: bool = False, remat_segments: bool = False,
                  quantized: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.drop_path = drop_path
         self.fused_stage = fused_stage
         self.remat_segments = remat_segments
         q = dict(compute_dtype=compute_dtype, quantized=quantized)
@@ -184,13 +190,23 @@ class ConvNeXtBlock(nn.Module):
         h = gelu(h)
         return self.grn(h) if self.grn is not None else h
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         segment = remat if self.remat_segments else (lambda fn, *a: fn(*a))
         h = segment(self._norm, self.conv(x))
         h = segment(self._activation, self.expand(h))
         h = self.contract(h)
         if self.layer_scale is not None:
             h = h * self.layer_scale.to(h.dtype)
+        if self.drop_path > 0.0 and train:
+            keep_prob = 1.0 - self.drop_path
+            if keep is None:
+                keep = torch.bernoulli(
+                    torch.full((h.shape[0],), keep_prob, device=h.device),
+                    generator=generator)
+            mask = keep.reshape((-1,) + (1,) * (h.ndim - 1)).to(h.dtype)
+            h = h * mask / keep_prob
         return h + x
 
 

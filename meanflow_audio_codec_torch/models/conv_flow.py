@@ -156,12 +156,15 @@ class ConditionalConvFlow(nn.Module):
     (``models/remat.py``). ``quantized`` serves every decoder stage's
     products in W8A8 int8 (:class:`ConvStage`); the encoder, ``latent_proj``
     and the conditioning stay in the compute dtype, as in the JAX package.
+    ``image_size`` and ``num_latent_tokens`` are kept, in the JAX model's
+    places, and nothing reads them, as there.
     """
 
     architecture = "convnet"  # its table in weights.py
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
-                 num_blocks: int, latent_dimension: int, use_grn: bool = True,
+                 num_blocks: int, latent_dimension: int, image_size: int = 28,
+                 use_grn: bool = True, num_latent_tokens: int = 32,
                  channels: int | None = None, bottleneck_dim: int = 128,
                  spatial: int | None = None, lift_channels: int | None = None,
                  fused_stage: bool = False, remat: bool = False,
@@ -173,6 +176,8 @@ class ConditionalConvFlow(nn.Module):
         self.condition_dimension = condition_dimension
         self.latent_dimension = latent_dimension
         self.latent_shape = (latent_dimension,)
+        self.image_size = image_size
+        self.num_latent_tokens = num_latent_tokens
         self.remat = remat
         self.remat_policy = remat_policy
         segments = remat and remat_policy in SEGMENT_POLICIES

@@ -69,13 +69,14 @@ def create_mlp_flow(noise_dimension: int, latent_dimension: int,
 
 def create_conv_flow(noise_dimension: int, latent_dimension: int,
                      num_blocks: int, condition_dimension: int,
-                     image_size: int | None = None,
+                     image_size: int = 28,
                      compute_dtype: torch.dtype = torch.float32,
                      **options) -> ConditionalConvFlow:
-    """``image_size`` is accepted and unused, as by the JAX model."""
-    del image_size
+    """``options`` go to :class:`ConditionalConvFlow`, which keeps
+    ``image_size`` and reads it nowhere, as the JAX model."""
     return ConditionalConvFlow(noise_dimension, condition_dimension,
                                num_blocks, latent_dimension,
+                               image_size=image_size,
                                compute_dtype=compute_dtype, **options)
 
 
@@ -108,10 +109,12 @@ _BUILDERS = {
 
 
 def create_flow_model(config: CodecConfig,
-                      generator: torch.Generator | None = None) -> nn.Module:
-    """Build the flow model the config names, computing in the dtype of its
-    ``precision``, with weights drawn from ``generator`` (CPU); move it to the
-    device afterwards. With ``loss_weighting: "learned"`` the model also
+                      generator: torch.Generator | None = None,
+                      compute_dtype: torch.dtype | None = None) -> nn.Module:
+    """Build the flow model the config names, computing in
+    ``compute_dtype`` (by default the dtype of its ``precision``), with
+    weights drawn from ``generator`` (CPU); move it to the device
+    afterwards. With ``loss_weighting: "learned"`` the model also
     holds the weighting's polynomial, which the JAX trainer and
     ``load_flow_state`` merge into the param tree."""
     architecture = config.architecture or "mlp"
@@ -124,7 +127,7 @@ def create_flow_model(config: CodecConfig,
                     latent_dimension=config.latent_dimension,
                     num_blocks=config.num_blocks,
                     condition_dimension=config.condition_dimension,
-                    compute_dtype=compute_dtype_for(config),
+                    compute_dtype=compute_dtype or compute_dtype_for(config),
                     **config.architecture_options)
     if (config.loss_weighting or "uniform") == "learned":
         attach_learned_weighting(model)

@@ -208,10 +208,10 @@ def _as_config(config: MDCTConfig | int, hop_size: int | None = None,
                       use_fft_threshold=use_fft_threshold)
 
 
-def mdct_direct(x: torch.Tensor, config: MDCTConfig | int,
+def mdct_direct(x: torch.Tensor, window_size: MDCTConfig | int,
                 hop_size: int | None = None) -> torch.Tensor:
     """Forward MDCT, ``(..., T) -> (..., n_frames, W)``: framing + matmul."""
-    config = _as_config(config, hop_size)
+    config = _as_config(window_size, hop_size)
     if x.ndim == 0:
         raise ValueError("Input must have at least 1 dimension")
     w, hop = config.window_size, config.hop_size
@@ -226,11 +226,11 @@ def _twiddles(window_size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.tensor(pre, device=device), torch.tensor(post, device=device))
 
 
-def mdct_fft(x: torch.Tensor, config: MDCTConfig | int,
+def mdct_fft(x: torch.Tensor, window_size: MDCTConfig | int,
              hop_size: int | None = None) -> torch.Tensor:
     """Forward MDCT by a 2W-point complex FFT of the windowed, pre-twiddled
     frames; the same coefficients as :func:`mdct_direct`."""
-    config = _as_config(config, hop_size)
+    config = _as_config(window_size, hop_size)
     if x.ndim == 0:
         raise ValueError("Input must have at least 1 dimension")
     w, hop = config.window_size, config.hop_size
@@ -275,11 +275,11 @@ def _coeff_rows(X: torch.Tensor) -> torch.Tensor:
     return X.reshape(-1, X.shape[-2], X.shape[-1]).float()
 
 
-def imdct_direct(X: torch.Tensor, config: MDCTConfig | int,
+def imdct_direct(X: torch.Tensor, window_size: MDCTConfig | int,
                  hop_size: int | None = None) -> torch.Tensor:
     """Inverse MDCT, ``(..., n_frames, W) -> (..., (nf-1)*hop + 2W)``:
     matmul + overlap-add."""
-    config = _as_config(config, hop_size)
+    config = _as_config(window_size, hop_size)
     x3d = _coeff_rows(X)
     w, hop = config.window_size, config.hop_size
     out_len = output_length(x3d.shape[1], w, hop)
@@ -289,12 +289,12 @@ def imdct_direct(X: torch.Tensor, config: MDCTConfig | int,
     return signal.reshape(X.shape[:-2] + (out_len,)).to(X.dtype)
 
 
-def imdct_fft(X: torch.Tensor, config: MDCTConfig | int,
+def imdct_fft(X: torch.Tensor, window_size: MDCTConfig | int,
               hop_size: int | None = None) -> torch.Tensor:
     """Inverse MDCT by a 2W-point inverse FFT: ``y[n] = scale Re(conj(pre[n])
     ifft(conj(post) X, zero-padded to 2W)[n]) w[n]``, overlap-added; the
     ``2W`` of the ifft's normalisation folds into the scale."""
-    config = _as_config(config, hop_size)
+    config = _as_config(window_size, hop_size)
     x3d = _coeff_rows(X)
     w, hop = config.window_size, config.hop_size
     out_len = output_length(x3d.shape[1], w, hop)

@@ -24,8 +24,10 @@ def _velocity(model, x: torch.Tensor, time: torch.Tensor,
 def sample(model, noise_dimension: int, latents: torch.Tensor,
            n_steps: int = 100, guidance_scale: float = 1.0,
            noise: torch.Tensor | None = None,
-           generator: torch.Generator | None = None) -> torch.Tensor:
-    """Heun (RK2) integration of the instantaneous velocity from t=1 to 0.
+           generator: torch.Generator | None = None,
+           use_improved_mean_flow: bool = False) -> torch.Tensor:
+    """Heun (RK2) integration of the instantaneous velocity from t=1 to 0;
+    ``use_improved_mean_flow`` takes :func:`sample_dual_time` instead.
 
     The grid is the JAX package's: ``ts = linspace(1, 0, n_steps)`` with
     ``dt = 1/n_steps``, each step evaluating at t and at t - dt (so with
@@ -35,6 +37,10 @@ def sample(model, noise_dimension: int, latents: torch.Tensor,
     """
     if latents is None:
         raise ValueError("latents must be provided for conditional sampling")
+    if use_improved_mean_flow:
+        return sample_dual_time(model, noise_dimension, latents,
+                                n_steps=n_steps, guidance_scale=guidance_scale,
+                                noise=noise, generator=generator)
     batch, device = latents.shape[0], latents.device
     if noise is None:
         noise = torch.randn((batch, noise_dimension), generator=generator,

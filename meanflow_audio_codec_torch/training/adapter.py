@@ -91,11 +91,13 @@ class TokenAdapter:
         return self.strategy.detokenize(tokens)
 
 
-def adapter_from_config(config: CodecConfig, strategy) -> TokenAdapter:
-    """The token adapter of the config's layout, with its ``coeff_scale``
-    and ``gain_norm``."""
+def adapter_from_config(config: CodecConfig, strategy,
+                        mode: str | None = None) -> TokenAdapter:
+    """The token adapter of the config's layout (or of ``mode``, when
+    given), with its ``coeff_scale`` and ``gain_norm``."""
     tok_cfg = config.tokenization_config
     return TokenAdapter(strategy,
                         scale=tok_cfg.get("coeff_scale", 1.0),
                         gain_norm=tok_cfg.get("gain_norm", 0.0),
-                        mode=resolve_flatten_mode(config))
+                        mode=resolve_flatten_mode(config) if mode is None
+                        else mode)

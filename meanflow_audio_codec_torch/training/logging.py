@@ -232,9 +232,12 @@ def plot_loss_curve(log_path: Path | str, out_path: Path | str,
     plt.close(fig)
 
 
-def generate_config_diff(old: dict, new: dict, out_path: Path | str) -> dict:
-    """Write the diff of two v2 config dicts (on resume)."""
-    diff = diff_dicts(old, new)
+def generate_config_diff(old_config: Any, new_config: Any,
+                         out_path: Path | str) -> dict:
+    """Write the diff of two configs (on resume): config objects, as the
+    JAX package's ``diff_configs`` takes, or their v2 dicts."""
+    diff = diff_dicts(*(c.to_dict() if hasattr(c, "to_dict") else c
+                        for c in (old_config, new_config)))
     save_json(diff, out_path)
     return diff
 

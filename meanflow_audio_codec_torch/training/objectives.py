@@ -51,6 +51,7 @@ from meanflow_audio_codec_torch.ops.losses import (
     apply_loss_weighting,
     mse_loss,
     mse_per_example,
+    weighted_l2_loss,
     weighted_l2_per_example,
 )
 from meanflow_audio_codec_torch.ops.schedules import (
@@ -177,19 +178,35 @@ class Objective:
 
 @dataclass(frozen=True)
 class AutoencoderObjective(Objective):
-    """Deterministic reconstruction: decode(0, t=0, encode(x)) ≈ x, plain
-    mean squared error (the JAX factory always builds it unweighted)."""
+    """Deterministic reconstruction: decode(0, t=0, encode(x)) ≈ x.
 
+    Trains encoder and decoder jointly for any flow architecture; for plain
+    autoencoders (``MLPMixerAutoencoder``) ``direct_call=True`` takes
+    ``model(x)`` instead, and then no latent QAT applies.
+    ``use_weighted_loss`` takes the weighted L2 in place of the plain mean
+    squared error; ``aux["mse"]`` is the mean squared error either way."""
+
+    use_weighted_loss: bool = False
+    direct_call: bool = False
     latent_qat: LatentQAT | None = None
     _noise = False
 
+    def draw(self, model, x, generator=None, **given) -> dict:
+        # model(x) sees no latents, so nothing is drawn for their QAT
+        return {} if self.direct_call else super().draw(model, x, generator,
+                                                        **given)
+
     def _loss(self, model, x, qat_noise=None) -> Losses:
-        latents = self._encode(model, x, qat_noise)
-        time = _time_pair(torch.zeros((x.shape[0], 1), dtype=x.dtype,
-                                      device=x.device))
-        recon = model(torch.zeros_like(x), time, latents)
-        loss = mse_loss(recon, x)
-        return loss, {"mse": loss.detach()}
+        if self.direct_call:
+            recon = model(x)
+        else:
+            latents = self._encode(model, x, qat_noise)
+            time = _time_pair(torch.zeros((x.shape[0], 1), dtype=x.dtype,
+                                          device=x.device))
+            recon = model(torch.zeros_like(x), time, latents)
+        loss = (weighted_l2_loss if self.use_weighted_loss else mse_loss)(
+            recon, x)
+        return loss, {"mse": mse_loss(recon, x).detach()}
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,13 @@
 Names: every name a JAX ``__init__`` exports (and the package's lazy
 top-level names) resolves in the port's subpackage of the same name; every
 public top-level name of a JAX module is defined somewhere in the port or
-mapped by ``DEPARTURES`` to the port name that takes its place. Configs:
+mapped by ``DEPARTURES`` to the port name that takes its place.
+Parameters: every parameter of every public JAX function and class the name
+walk pairs with a port object is the port object's, reached through its
+``**options`` (``FORWARDS``), or a ``FRAMEWORK_SWAPS`` entry naming the
+port parameter in its place; ``adapter_from_config(mode=...)``, the JAX
+keyword names, the inert conv-flow fields and ``create_flow_model``'s dtype
+override against JAX's. Configs:
 every JSON under ``configs/`` reads to the same dict, flat fields, sections,
 schema and documentation in both packages; ``print_config_diff`` prints the
 same text; a bad value in each section raises in both; the deprecated
@@ -25,9 +31,11 @@ import ast
 import dataclasses
 import functools
 import importlib
+import inspect
 import socket
 import subprocess
 import sys
+import tempfile
 import warnings
 from pathlib import Path
 
@@ -49,19 +57,34 @@ from meanflow_audio_codec_tpu.ops import stage_pallas as jstage
 from meanflow_audio_codec_tpu.ops import time_sampling as jtime
 from meanflow_audio_codec_tpu.ops import tokenize as jtok
 from meanflow_audio_codec_tpu.training import objectives as jobj
+from meanflow_audio_codec_tpu.models.factories import (
+    create_flow_model as jax_create_flow_model,
+)
+from meanflow_audio_codec_tpu.training.trainer import (
+    adapter_from_config as jax_adapter_from_config,
+)
 from meanflow_audio_codec_tpu.training.trainer import (
     make_optimizer as jax_make_optimizer,
 )
 from meanflow_audio_codec_torch import configs, weights
 from meanflow_audio_codec_torch.models import conv_flow
+from meanflow_audio_codec_torch.models.factories import (
+    create_conv_flow,
+    create_flow_model,
+)
 from meanflow_audio_codec_torch.ops import losses, stage, stage_cuda
 from meanflow_audio_codec_torch.ops import time_sampling as ttime
 from meanflow_audio_codec_torch.ops import tokenize as ttok
 from meanflow_audio_codec_torch.ops.mdct_layers import IMDCTLayer, MDCTLayer
 from meanflow_audio_codec_torch.training import objectives as tobj
 from meanflow_audio_codec_torch.training import profiling
+from meanflow_audio_codec_torch.training.adapter import (
+    adapter_from_config,
+    resolve_flatten_mode,
+)
 from meanflow_audio_codec_torch.training.logging import (
     collect_experiment_metadata,
+    generate_config_diff,
 )
 from meanflow_audio_codec_torch.training.optim import TrainState, make_optimizer
 
@@ -233,6 +256,258 @@ def test_importing_the_subpackages_builds_and_loads_nothing():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] {} []"
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+_SECTIONED = "meanflow_audio_codec_torch.configs._sectioned_dict:"
+#: a JAX parameter the framework replaces -> the port parameter in its place
+#: (``object:name`` where another port object takes it; None where the port
+#: has nothing in its place). A bare key holds wherever the port object
+#: lacks the JAX name; ``file:Object.parameter`` keys hold for that object.
+FRAMEWORK_SWAPS = {
+    "dtype": "compute_dtype",
+    "key": "generator",
+    "apply_fn": "model",
+    "params": "model",
+    "template": "state",
+    "jitted_fn": "probe",
+    "donate": None,  # torch has no buffer donation
+    "use_pallas": None,  # the tensor's device picks kernel or plain version
+    "interpret": None,  # Pallas's interpreter: a CPU tensor takes the plain
+    "parent": None,  # Flax's module plumbing
+    "name": None,
+    "codec.py:AudioCodec.state": "state_dict",
+    "streaming.py:frame_noise.key": "seed",
+    "streaming.py:StreamingDecoder.key": "seed",
+    "streaming.py:StreamingCodec.key": "seed",
+    "ops/losses.py:learned_weight_terms.weight_params": "poly",
+    "training/checkpoints.py:count_params.params": "state",
+    "training/checkpoints.py:load_params_only.params_template": "model",
+    "training/checkpoints.py:load_serving_checkpoint.params_template":
+        "architecture",
+    # the train state holds the model, the optimiser and the EMA decay; its
+    # step is a property over the update count
+    "models/train_state.py:TrainState.step": None,
+    "models/train_state.py:TrainState.tx": "optimizer",
+    "models/train_state.py:TrainState.opt_state": "optimizer",
+    "models/train_state.py:TrainState.ema_params": "ema_decay",
+    # departure 9: torch.distributed's own initialisation arguments
+    "parallel/distributed.py:initialize_distributed.coordinator_address":
+        "init_method",
+    "parallel/distributed.py:initialize_distributed.num_processes":
+        "world_size",
+    "parallel/distributed.py:initialize_distributed.process_id": "rank",
+    # departure 20: TrainFlowConfig is CodecConfig, whose constructor takes
+    # the sections (and the deprecated output_dir/run_name) by keyword
+    **{f"configs/config.py:TrainFlowConfig.{name}": _SECTIONED + name
+       for name in ("base", "model", "training", "tpu", "output_dir",
+                    "run_name", "config_version")},
+}
+#: port functions whose ``**options`` go to a constructor that names them
+FORWARDS = {
+    "create_conv_flow": "meanflow_audio_codec_torch.models.conv_flow."
+                        "ConditionalConvFlow",
+    "create_mlp_mixer_flow": "meanflow_audio_codec_torch.models.mlp_mixer."
+                             "ConditionalMLPMixerFlow",
+}
+
+
+def _module(pkg: str, rel: str) -> str:
+    return ".".join([pkg, *rel[:-3].split("/")]).removesuffix(".__init__")
+
+
+def _parameters(obj) -> tuple[list[str], bool]:
+    """Dataclass fields and signature parameters (a class's ``__init__``),
+    and whether the signature takes ``**kwargs``."""
+    names = ([f.name for f in dataclasses.fields(obj)]
+             if isinstance(obj, type) and dataclasses.is_dataclass(obj)
+             else [])
+    var = False
+    for p in inspect.signature(obj).parameters.values():
+        if p.kind == p.VAR_KEYWORD:
+            var = True
+        elif p.kind != p.VAR_POSITIONAL and p.name not in names:
+            names.append(p.name)
+    return names, var
+
+
+def _port_parameters(name: str, obj) -> set[str]:
+    names, var = _parameters(obj)
+    if var and name in FORWARDS:
+        names += _parameters(_resolve(FORWARDS[name]))[0]
+    return set(names)
+
+
+def _jax_defs(rel: str) -> list[str]:
+    tree = ast.parse((JAX_DIR / rel).read_text())
+    return [n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+PARAMETER_MODULES = sorted(
+    str(p.relative_to(JAX_DIR)) for p in JAX_DIR.rglob("*.py")
+    if not str(p.relative_to(JAX_DIR)).startswith(NOT_WALKED)
+    and _jax_defs(str(p.relative_to(JAX_DIR))))
+
+
+@functools.cache
+def _unmatched() -> list[tuple[str, str, str, set[str]]]:
+    """Every (JAX file, object, parameter, port object's parameters) where
+    the port object the name walk pairs with a public JAX function or class
+    lacks the JAX parameter's name."""
+    port_names = _top_level_names(PORT_DIR)
+    departed = {key.split(":")[1] for key in DEPARTURES}
+    out = []
+    for rel in PARAMETER_MODULES:
+        jmod = importlib.import_module(_module("meanflow_audio_codec_tpu",
+                                               rel))
+        same = (PORT_DIR / rel).exists() and importlib.import_module(
+            _module("meanflow_audio_codec_torch", rel))
+        for name in _jax_defs(rel):
+            if name not in port_names or name in departed:
+                continue
+            pobj = getattr(same, name, None) if same else None
+            if pobj is None:
+                pobj = getattr(importlib.import_module(_module(
+                    "meanflow_audio_codec_torch", port_names[name])), name)
+            if not callable(pobj):  # a type alias of the port's
+                continue
+            port = _port_parameters(name, pobj)
+            out += [(rel, name, param, port)
+                    for param in _parameters(getattr(jmod, name))[0]
+                    if param not in port]
+    return out
+
+
+def _swap_key(rel: str, name: str, param: str) -> str | None:
+    for key in (f"{rel}:{name}.{param}", param):
+        if key in FRAMEWORK_SWAPS:
+            return key
+    return None
+
+
+@pytest.mark.parametrize("rel", PARAMETER_MODULES)
+def test_every_jax_parameter_is_in_the_port_or_a_swap(rel):
+    """Each parameter of each public JAX function and class (dataclass
+    fields, ``__init__``) the name walk pairs with a port object is a
+    parameter of that object, reached through its ``**options``
+    (``FORWARDS``), or a ``FRAMEWORK_SWAPS`` entry."""
+    missing = [f"{name}.{param}" for r, name, param, _ in _unmatched()
+               if r == rel and _swap_key(r, name, param) is None]
+    assert missing == []
+
+
+@pytest.mark.parametrize("key", sorted(FRAMEWORK_SWAPS))
+def test_each_framework_swap_names_the_port_parameter(key):
+    """Each entry stands for a JAX parameter the port lacks, and the port
+    parameter it names exists where it says."""
+    uses = [port for rel, name, param, port in _unmatched()
+            if _swap_key(rel, name, param) == key]
+    assert uses, f"{key} stands for no JAX parameter"
+    target = FRAMEWORK_SWAPS[key]
+    if target is None:
+        return
+    if ":" in target:
+        path, param = target.split(":")
+        assert param in _parameters(_resolve(path))[0]
+    else:
+        assert all(target in port for port in uses)
+
+
+def _audio_configs(**tokenization):
+    """(JAX config, port config): audio through the MDCT at W 64."""
+    data = {"base": {"batch_size": 2, "n_steps": 4, "base_lr": 1e-3,
+                     "weight_decay": 0.0, "seed": 0},
+            "model": {"noise_dimension": 128, "condition_dimension": 16,
+                      "latent_dimension": 8, "num_blocks": 1},
+            "training": {"sample_every": 4, "sample_seed": 0,
+                         "sample_steps": 1, "workdir": "unused"},
+            "dataset": {"dataset": "audio", "tokenization_strategy": "mdct",
+                        "tokenization_config": {
+                            "window_size": 64, "frame_size": 1024,
+                            "coeff_scale": 4.0, "gain_norm": 0.05,
+                            **tokenization}}}
+    return (jconfig.TrainFlowConfig.from_dict(data),
+            configs.config_from_dict(data))
+
+
+@pytest.mark.parametrize("mode", ["frames", "features"])
+def test_adapter_from_config_takes_jax_mode_override(mode):
+    """``mode`` wins over the config's layout, as in JAX; the tokens are
+    JAX's (rtol 1e-4 / atol 1e-5, the MDCT's float32 sums)."""
+    jcfg, cfg = _audio_configs()
+    assert resolve_flatten_mode(cfg) == "frames"
+    jadapter = jax_adapter_from_config(
+        jcfg, jtok.MDCTTokenization(window_size=64), mode=mode)
+    adapter = adapter_from_config(cfg, ttok.MDCTTokenization(64), mode=mode)
+    assert adapter.mode == jadapter.mode == mode
+    x = _x((2, 1024, 2), 9)
+    np.testing.assert_allclose(
+        _np(adapter.tokenize(torch.from_numpy(x))),
+        np.asarray(jadapter.tokenize(jnp.asarray(x))), rtol=1e-4, atol=1e-5)
+    assert adapter_from_config(cfg, ttok.MDCTTokenization(64)).mode == (
+        "frames")
+
+
+def test_the_jax_keyword_names_call_the_port():
+    """``merge_configs(base=...)``, ``generate_config_diff(old_config=...,
+    new_config=...)`` on config objects or dicts, and ``window_size=`` for
+    the MDCT's FFT and direct paths, as the JAX package names them."""
+    jcfg, cfg = _audio_configs()
+    override = {"base": {"batch_size": 3}}
+    merged = configs.merge_configs(base=cfg, override=override)
+    assert merged.to_dict() == jconfig.merge_configs(
+        base=jcfg, override=override).to_dict()
+    out = Path(tempfile.mkdtemp()) / "diff.json"
+    want = jconfig.diff_configs(jcfg, jconfig.merge_configs(jcfg, override))
+    assert generate_config_diff(old_config=cfg, new_config=merged,
+                                out_path=out) == want
+    assert generate_config_diff(old_config=cfg.to_dict(),
+                                new_config=merged.to_dict(),
+                                out_path=out) == want
+    x = _x((2, 1024), 10)
+    for name in ("mdct_fft", "mdct_direct"):
+        coeffs = getattr(tmdct, name)(torch.from_numpy(x), window_size=64)
+        np.testing.assert_allclose(
+            _np(coeffs), np.asarray(getattr(jmdct, name)(x, window_size=64)),
+            **FFT_TOL)
+        # an MDCTConfig still goes in the same place
+        torch.testing.assert_close(coeffs, getattr(tmdct, name)(
+            torch.from_numpy(x), tmdct.MDCTConfig(64)))
+    for name in ("imdct_fft", "imdct_direct"):
+        np.testing.assert_allclose(
+            _np(getattr(tmdct, name)(coeffs, window_size=64)),
+            np.asarray(getattr(jmdct, name)(np.asarray(_np(coeffs)),
+                                            window_size=64)), **FFT_TOL)
+
+
+def test_the_inert_conv_flow_fields_and_the_dtype_override():
+    """``image_size`` and ``num_latent_tokens`` are taken in JAX's places
+    and read nowhere (the parameters are the same without them);
+    ``create_flow_model``'s ``compute_dtype`` is JAX's ``dtype``."""
+    kw = dict(noise_dimension=64, condition_dimension=16, num_blocks=1,
+              latent_dimension=8, channels=16)
+    a = conv_flow.ConditionalConvFlow(**kw)
+    b = conv_flow.ConditionalConvFlow(64, 16, 1, 8, 32, True, 4,
+                                      channels=16)
+    jmodel = jconv.ConditionalConvFlow(64, 16, 1, 8, 32, True, 4,
+                                       channels=16)
+    assert (b.image_size, b.num_latent_tokens) == (jmodel.image_size,
+                                                    jmodel.num_latent_tokens)
+    assert a.state_dict().keys() == b.state_dict().keys()
+    assert create_conv_flow(64, 8, 1, 16, image_size=8).image_size == 8
+    jcfg, cfg = _audio_configs()
+    assert str(create_flow_model(cfg).compute_dtype).removeprefix(
+        "torch.") == jnp.dtype(jax_create_flow_model(jcfg).dtype).name
+    for jdtype, dtype in ((jnp.float32, torch.float32),
+                          (jnp.bfloat16, torch.bfloat16)):
+        assert jax_create_flow_model(jcfg, dtype=jdtype).dtype == jdtype
+        assert create_flow_model(cfg, compute_dtype=dtype
+                                 ).compute_dtype == dtype
 
 
 # ---------------------------------------------------------------------------

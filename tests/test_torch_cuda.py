@@ -31,6 +31,11 @@ three stage kernels (the unfused one none), and the profiler records an
 int8 GEMM kernel for each of a quantized decoder call's 72 products.
 Two gloo ranks on the one card (``tests/torch_ranks.py``) take a
 data-parallel step equal to the one-process step (relative L2 1e-5).
+``ConvNeXtBlock(drop_path=0.5)`` in training with the same ``keep`` on
+the card and the CPU (float32, TF32 off: rtol 1e-4 / atol 1e-5), and one
+float32 step of the audio autoencoder trial at its published widths on the
+card against the CPU (loss rtol 1e-4, Adam's first moments within relative
+L2 1e-5).
 """
 
 import pytest
@@ -1381,3 +1386,45 @@ def test_stage_fusable_matches_the_launches(device, dtype):
             launched = False
         assert launched == stage.stage_fusable(spatial, channels, dtype)
         assert stage_cuda.launches["ln_norm_cuda"] == int(launched)
+
+
+def test_drop_path_block_on_the_card_matches_the_cpu(device, monkeypatch):
+    """``ConvNeXtBlock(drop_path=0.5)`` in training, the same ``keep`` on
+    both devices: float32 output within rtol 1e-4 / atol 1e-5; the mask
+    the card's generator draws keeps whole rows."""
+    from meanflow_audio_codec_torch.models.blocks import ConvNeXtBlock
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    block = ConvNeXtBlock(64, drop_path=0.5, layer_scale_init_value=1.0)
+    x = torch.randn(8, 8, 8, 64, generator=torch.Generator().manual_seed(0))
+    keep = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0, 1.0])
+    want = block(x, train=True, keep=keep)
+    block.to(device)
+    got = block(x.to(device), train=True, keep=keep.to(device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    drawn = block(x.to(device), train=True,
+                  generator=torch.Generator(device).manual_seed(1))
+    same = (drawn == x.to(device)).reshape(8, -1)
+    assert bool((same.all(dim=1) | ~same.any(dim=1)).all())
+
+
+def test_audio_autoencoder_trial_step_on_the_card_matches_the_cpu(device):
+    """One float32 step of the audio autoencoder trial at its published
+    widths (W 256 stereo frame tokens, two 16384-sample clips) on the card
+    against the CPU (``proj.step_against_cpu``, cuDNN's TF32 off): loss
+    rtol 1e-4, Adam's first moments within relative L2 1e-5; the tokenize
+    launches one MDCT."""
+    from meanflow_audio_codec_torch.data.audio import synthetic_audio_pipeline
+    from meanflow_audio_codec_torch.proj import audio_autoencoder
+    from meanflow_audio_codec_torch.proj import step_against_cpu
+
+    batch = torch.from_numpy(next(synthetic_audio_pipeline(
+        frame_size=16384, batch_size=2)))
+    _zero_counts()
+    loss_cpu, loss_card, rel = step_against_cpu(
+        audio_autoencoder.build_model,
+        audio_autoencoder.build_step(audio_autoencoder.build_tokenizer()),
+        batch, device)
+    assert mdct_cuda_mod.launches == 1
+    assert loss_card == pytest.approx(loss_cpu, rel=1e-4, abs=0)
+    assert rel <= 1e-5, rel

@@ -99,6 +99,16 @@ def test_the_orbax_modules_are_checked():
     assert _build.HOST_SOURCES["zstd"] == PORT / "csrc" / "zstd.cpp"
 
 
+def test_the_proj_trials_are_checked():
+    """Each trial of the repository's ``proj/`` has a counterpart of the
+    same name under the port's ``proj/`` among the files the tests above
+    walk (importing it loads no JAX)."""
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    trials = {p.parent.name for p in (REPO / "proj").glob("*/train.py")}
+    assert len(trials) == 3
+    assert {f"proj/{t}.py" for t in trials} | {"proj/__init__.py"} <= names
+
+
 _CLI_PROBE = """
 import runpy, sys
 sys.argv = ["codec_cli", "info", {path!r}]

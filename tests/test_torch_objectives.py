@@ -1,7 +1,8 @@
 """PyTorch port: every training objective and switch against the JAX package.
 
-Flow matching, mean flow (stop-gradient on and off), the autoencoder, iMF
-without the stop-gradient (plain and ``fused_stage``), the learned loss
+Flow matching, mean flow (stop-gradient on and off), the autoencoder
+(plain and weighted; ``direct_call`` on a small ``MLPMixerAutoencoder``),
+iMF without the stop-gradient (plain and ``fused_stage``), the learned loss
 weighting and latent QAT (``ste`` on the ECSQ and the fixed-width grid,
 ``noise``) on a small convnet flow. Parameters are Flax's init tree with
 every leaf redrawn from a seeded numpy generator, carried to the port by
@@ -39,6 +40,7 @@ from meanflow_audio_codec_tpu.configs import (
     TrainingConfig,
 )
 from meanflow_audio_codec_tpu.models import conv_flow as jconv
+from meanflow_audio_codec_tpu.models import mlp_mixer as jmixer
 from meanflow_audio_codec_tpu.ops import latent_quant as jlq
 from meanflow_audio_codec_tpu.ops import time_sampling as jtime
 from meanflow_audio_codec_tpu.ops.losses import LEARNED_WEIGHT_KEY
@@ -49,7 +51,7 @@ from meanflow_audio_codec_tpu.references.strategy import (
 from meanflow_audio_codec_tpu.training import objectives as jobj
 from meanflow_audio_codec_torch import weights
 from meanflow_audio_codec_torch.configs import config_from_dict
-from meanflow_audio_codec_torch.models import conv_flow
+from meanflow_audio_codec_torch.models import conv_flow, mlp_mixer
 from meanflow_audio_codec_torch.ops import latent_quant as lq
 from meanflow_audio_codec_torch.ops import losses, time_sampling
 from meanflow_audio_codec_torch.training import objectives as obj
@@ -116,6 +118,9 @@ CASES = {
         False, False),
     "ae": (lambda: jobj.AutoencoderObjective(),
            lambda: obj.AutoencoderObjective(), False, False),
+    "ae_weighted": (lambda: jobj.AutoencoderObjective(use_weighted_loss=True),
+                    lambda: obj.AutoencoderObjective(use_weighted_loss=True),
+                    False, False),
     "imf_no_stop_gradient": (
         lambda: jobj.ImprovedMeanFlowObjective(
             time_sampling=_pair_sampling(True), use_stop_gradient=False),
@@ -227,6 +232,61 @@ def test_loss_and_gradients_match_jax(case):
     assert ("loss_weighting.poly" in grads) == learned
     for name, g in grads.items():
         _grad_close(g, want[name].numpy(), name)
+
+
+# a tiny MLPMixerAutoencoder, trained through model(x) (direct_call)
+MIXER_AE = dict(num_latent_tokens=4, latent_dim=8, num_context_tokens=8,
+                num_output_tokens=8, token_mix_dim=16, channel_mix_dim=16)
+
+
+@pytest.mark.parametrize("weighted,qat", [(False, False), (True, False),
+                                          (False, True)],
+                         ids=["mse", "weighted_l2", "mse_qat_unused"])
+def test_autoencoder_direct_call_matches_jax(weighted, qat):
+    """``model(x)`` against ``x``; a latent QAT is set but unused, as in
+    JAX (the autoencoder's call sees no latents), and draws nothing."""
+    x = (0.3 * np.random.default_rng(4).standard_normal((BATCH, 32))).astype(
+        np.float32)
+    jmodel = jmixer.MLPMixerAutoencoder(input_dim=32, **MIXER_AE)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
+                                                jnp.asarray(x)))
+    rng = np.random.default_rng(6)
+    params = jax.tree_util.tree_map(
+        lambda a: (0.1 * rng.standard_normal(a.shape)).astype(np.float32),
+        shapes["params"])
+    jobjective = jobj.AutoencoderObjective(
+        use_weighted_loss=weighted, direct_call=True,
+        latent_qat=jlq.LatentQAT(mode="noise", bits=4) if qat else None)
+
+    def wrapped(p):
+        return jobjective.loss(p, jmodel.apply, jax.random.PRNGKey(0),
+                               jnp.asarray(x))
+
+    (loss_ref, aux_ref), grads_ref = jax.jit(
+        jax.value_and_grad(wrapped, has_aux=True))(params)
+    model = weights.load_flax_params(
+        mlp_mixer.MLPMixerAutoencoder(32, **MIXER_AE), params)
+    objective = obj.AutoencoderObjective(
+        use_weighted_loss=weighted, direct_call=True,
+        latent_qat=lq.LatentQAT(mode="noise", bits=4) if qat else None)
+    assert objective.draw(model, torch.from_numpy(x)) == {}
+    loss, aux = objective.loss(model, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(loss), np.asarray(loss_ref), rtol=1e-4)
+    np.testing.assert_allclose(_np(aux["mse"]), np.asarray(aux_ref["mse"]),
+                               rtol=1e-4)
+    names = [n for n, _ in model.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(
+        model.parameters()))))
+    want = weights.flax_to_torch(grads_ref, model.architecture)
+    assert set(grads) == set(want)
+    # a token mix's output bias shifts each token by one value over all its
+    # channels, which the next adaLN norm over channels removes: such a
+    # gradient is zero but for rounding, so the atol is 1e-5 of the largest
+    # gradient of any leaf
+    scale = max(float(np.abs(w.numpy()).max()) for w in want.values())
+    for name, g in grads.items():
+        np.testing.assert_allclose(_np(g), want[name].numpy(), rtol=1e-3,
+                                   atol=1e-5 * scale, err_msg=name)
 
 
 def test_stop_gradient_changes_the_gradient_not_the_loss():
@@ -381,22 +441,11 @@ def _configs(**method):
     return jcfg, config_from_dict(jcfg.to_dict())
 
 
-#: JAX objective fields the port's objective fixes instead of carrying
-FIXED = {"AutoencoderObjective": {"use_weighted_loss": False,
-                                  "direct_call": False}}
-
-
 def _same(ours, ref):
     if hasattr(ref, "__dataclass_fields__"):
-        name = type(ref).__name__
-        assert type(ours).__name__ == name
-        fixed = FIXED.get(name, {})
+        assert type(ours).__name__ == type(ref).__name__
         for field_name in ref.__dataclass_fields__:
-            if field_name in fixed:
-                assert getattr(ref, field_name) == fixed[field_name]
-                assert not hasattr(ours, field_name)
-            else:
-                _same(getattr(ours, field_name), getattr(ref, field_name))
+            _same(getattr(ours, field_name), getattr(ref, field_name))
     else:
         assert ours == ref
 
@@ -406,6 +455,7 @@ STRATEGIES = [
     {"method": "mean_flow", "gamma": 1.0, "c": 1e-2},
     {"method": "mean_flow", "gamma": 2.0, "use_stop_gradient": False},
     {"method": "autoencoder"}, {"method": "autoencoder", "qat_bits": 4},
+    {"method": "autoencoder", "use_weighted_loss": True},
     {"method": "flow_matching", "time_sampling": "uniform",
      "use_weighted_loss": False, "loss_weighting": "learned"},
     {"method": "flow_matching", "noise_schedule": "uniform",

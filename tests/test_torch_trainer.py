@@ -306,14 +306,15 @@ def test_learned_weighting_checkpoints_cross_both_ways(tmp_path):
                                   poly_j)
 
 
-@pytest.mark.parametrize("n_steps,guidance", [(1, 1.0), (3, 1.0), (2, 2.0)])
-def test_flow_matching_sampling_matches_jax_heun(n_steps, guidance):
-    """The trainer's flow-matching sampler against JAX's ``sample``: the
-    same grid (linspace(1, 0, n), dt = 1/n), the initial noise JAX draws
-    from its key passed in."""
-    flow = dict(noise_dimension=64, condition_dimension=16, num_blocks=2,
-                latent_dimension=8, channels=16, bottleneck_dim=32,
-                spatial=4, lift_channels=8)
+SAMPLE_FLOW = dict(noise_dimension=64, condition_dimension=16, num_blocks=2,
+                   latent_dimension=8, channels=16, bottleneck_dim=32,
+                   spatial=4, lift_channels=8)
+
+
+def _sampling_models():
+    """A small JAX convnet flow with seeded parameters, the port's twin and
+    three latents."""
+    flow = SAMPLE_FLOW
     jmodel = jax_create_flow_model(TrainFlowConfig.from_dict({
         **_tiny("unused"), "model": {
             "noise_dimension": 64, "condition_dimension": 16,
@@ -328,18 +329,49 @@ def test_flow_matching_sampling_matches_jax_heun(n_steps, guidance):
             jax.random.PRNGKey(0), jnp.zeros((2, 64)), jnp.zeros((2, 2)),
             method="init_all"))["params"])
     latents = rng.standard_normal((3, 8)).astype(np.float32)
+    model = weights.load_flax_params(conv_flow.ConditionalConvFlow(**flow),
+                                     params)
+    return jmodel, params, model, latents
+
+
+@pytest.mark.parametrize("n_steps,guidance", [(1, 1.0), (3, 1.0), (2, 2.0)])
+def test_flow_matching_sampling_matches_jax_heun(n_steps, guidance):
+    """The trainer's flow-matching sampler against JAX's ``sample``: the
+    same grid (linspace(1, 0, n), dt = 1/n), the initial noise JAX draws
+    from its key passed in."""
+    jmodel, params, model, latents = _sampling_models()
     key = jax.random.PRNGKey(7)
     want = jsampling.sample(jmodel.apply, 64, params, key,
                             jnp.asarray(latents), n_steps=n_steps,
                             guidance_scale=guidance)
     noise = torch.from_numpy(np.array(jax.random.normal(key, (3, 64))))
-    model = weights.load_flax_params(conv_flow.ConditionalConvFlow(**flow),
-                                     params)
     got = sampling.sample(model, 64, torch.from_numpy(latents),
                           n_steps=n_steps, guidance_scale=guidance,
                           noise=noise)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("n_steps,guidance", [(1, 1.0), (2, 2.0)])
+def test_improved_mean_flow_sampling_matches_jax(n_steps, guidance):
+    """``sample(use_improved_mean_flow=True)`` takes the dual-time sampler,
+    as JAX's does; the initial noise JAX draws from its key passed in
+    (rtol 1e-5 / atol 1e-5 on samples of magnitude up to about 3: the same
+    float32 forwards summed in another order, through the guidance blend)."""
+    jmodel, params, model, latents = _sampling_models()
+    key = jax.random.PRNGKey(7)
+    want = jsampling.sample(jmodel.apply, 64, params, key,
+                            jnp.asarray(latents), n_steps=n_steps,
+                            use_improved_mean_flow=True,
+                            guidance_scale=guidance)
+    noise = torch.from_numpy(np.array(jax.random.normal(key, (3, 64))))
+    got = sampling.sample(model, 64, torch.from_numpy(latents), n_steps,
+                          guidance, noise, use_improved_mean_flow=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got, sampling.sample_dual_time(
+        model, 64, torch.from_numpy(latents), n_steps=n_steps,
+        guidance_scale=guidance, noise=noise), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("method", ["autoencoder", "flow_matching",
