@@ -8,6 +8,7 @@
     python3 chip_smoke.py --orbax-only   # the build, then phase 16
     python3 chip_smoke.py --interfaces-only   # the build, then phase 17
     python3 chip_smoke.py --proj-only   # the build, then phase 18
+    python3 chip_smoke.py --grn-only   # GELU+GRN, conv_mfu fused, phase 5
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -18,8 +19,8 @@ and prints no result line):
      native/dataloader.cpp and the zstd decoder from csrc/zstd.cpp (g++),
      all sources at once,
      and print the build seconds, the ptxas report and
-     the instruction mix of the MDCT's, IMDCT's and single-read GELU+GRN's
-     main loops (cuobjdump);
+     the instruction mix of the MDCT's, IMDCT's and GELU+GRN's single-read
+     and cluster main loops (cuobjdump);
   3. hold each kernel against its plain PyTorch version (TF32 off): the
      MDCT/IMDCT at the codec shape (8 rows x 32768 samples, W=512, hop 256),
      a ragged shape (3 rows, W=576, hop 100) and the 10 s clip shape (2 rows
@@ -34,14 +35,18 @@ and prints no result line):
      16384 samples, W 256, hop 128), rtol 1e-4 / atol 1e-3; the
      three stage kernels at the train shape (2032 rows x 64 positions x 256
      or 512 channels), benchmark_conv_mfu's ch512 rows (2048 x 64 x 512 or
-     1024) and ragged shapes, in bf16 and f32, with the stage
+     1024), a wide-C shape (8 x 64 x 2048 or 4096), a ragged long P (3 x
+     301 x 128 or 256) and ragged shapes, in bf16 and f32, with the stage
      ops' forward-AD tangents, gradients and grad-of-JVP (reverse mode
      through the tangent) against plain-op autograd, and
-     both GELU+GRN kernels (single read at those shapes, two pass at a
-     longer P); and time each kernel, its plain version and one library
-     call (where one exists) with CUDA events, the MDCT and IMDCT at the
-     10 s and train shapes too, and the two-pass GELU+GRN
-     at the train shape beside the single read; then the MDCT and IMDCT
+     the three GELU+GRN kernels (single read at the train and ragged
+     shapes; the cluster at two longer P, the conv_mfu and wide-C shapes,
+     launched twice for the same bits; two pass forced at the train and
+     conv_mfu shapes); and time each kernel, its plain version and one
+     library call (where one exists) with CUDA events, the MDCT and IMDCT
+     at the 10 s and train shapes too, the two-pass GELU+GRN
+     at the train shape beside the single read, and the cluster and the
+     two-pass GELU+GRN in turns at the conv_mfu shape; then the MDCT and IMDCT
      kernels and their plain versions at the codec shape again, in turns
      (7 rounds of one batch each, ``ms_alternating``);
   3a. gradients through the transform kernels: ``x.grad`` through
@@ -574,24 +579,33 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 SASS_KERNELS = {"mdct_cuda": ("mdct", "mdct_kernelILi4E"),
                 "imdct_cuda": ("imdct", "imdct_kernelILi4E"),
                 "gelu_grn_cuda single_read": (
-                    "stage", "gelu_grn_single_read_kernelI13__nv_bfloat16Li8E")}
+                    "stage",
+                    "gelu_grn_single_read_kernelI13__nv_bfloat16Li8ELb0E"),
+                "gelu_grn_cuda cluster": (
+                    "stage",
+                    "gelu_grn_single_read_kernelI13__nv_bfloat16Li8ELb1E")}
 
 
-def sass_profile() -> None:
+def sass_profile(libs: tuple = ("mdct", "imdct", "stage")) -> None:
     """The instruction mix of the redesigned kernels' main loops (the largest
-    loop of each, from ``cuobjdump -sass`` of the built libraries): the FMA
-    share of the issue slots is what bounds a kernel that waits on neither
-    memory nor barriers."""
+    loop of each, from ``cuobjdump -sass`` of the built libraries in
+    ``libs``): the FMA share of the issue slots is what bounds a kernel
+    that waits on neither memory nor barriers."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         print("SASS profile: cuobjdump not found (not measured)", flush=True)
         return
     for label, (lib, part) in SASS_KERNELS.items():
+        if lib not in libs:
+            continue
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             check=True, capture_output=True, text=True, timeout=120).stdout
-        body = next(f for f in re.split(r"\n\s*Function : ", sass)
-                    if part in f.split("\n")[0])
+        body = next((f for f in re.split(r"\n\s*Function : ", sass)
+                     if part in f.split("\n")[0]), None)
+        if body is None:  # a tree without this kernel (--grn-only's parent)
+            print(f"SASS profile {label}: no such kernel", flush=True)
+            continue
         ops = [(int(a, 16), op.split()[-1].split(".")[0], rest)
                for a, op, rest in re.findall(
                    r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?[A-Z][A-Z0-9_.]*)"
@@ -980,15 +994,35 @@ def _time_stage_kernel(res: dict, name: str, kernel, plain, library,
           f"bound {res['bound_ms' + suffix]:.4f} ms (bytes)", flush=True)
 
 
+def grn_in_turns(label: str, x: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor) -> dict:
+    """The GELU+GRN kernel the wrapper picks for ``x`` and the two-pass
+    kernel forced, timed in turns (``time_alternating``), each with its
+    share of the byte bound: kernel -> ms, and ``bound_ms``."""
+    variant = stage_cuda.gelu_grn_variant(x)
+    times = time_alternating({
+        variant: lambda: stage_cuda.gelu_grn_cuda(x, gamma, beta),
+        "two_pass (forced)": lambda: gelu_grn_two_pass(x, gamma, beta)})
+    bound_ms = 1e3 * _stage_bytes("gelu_grn_cuda", x) / PEAK_BYTES_PER_S
+    print(f"gelu_grn_cuda {label} {tuple(x.shape)} {x.dtype}, in turns: "
+          + ", ".join(f"{k} {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the "
+                      f"{bound_ms:.4f} ms byte bound)"
+                      for k, ms in times.items()), flush=True)
+    return {**times, "bound_ms": bound_ms}
+
+
 def check_stage_kernels(device: torch.device) -> dict:
     """Kernels 3-5 against their plain versions at the train shape (LN at
-    C = 256, GELU+GRN at 2C = 512), two ragged shapes, a long-P shape
-    (GELU+GRN takes its two-pass kernel there) and benchmark_conv_mfu's
-    (2048 rows, LN at C = 512, GELU+GRN at 1024), in bf16 and f32, and the
-    two-pass GELU+GRN kernel at the train shape too; the public ops'
-    tangents and gradients in f32 at the train shape; times of the bf16
-    train shape, the dtype of the train path, and of the bf16 conv_mfu
-    shape (keys ending ``_conv_mfu``)."""
+    C = 256, GELU+GRN at 2C = 512), two ragged shapes, two long-P shapes,
+    benchmark_conv_mfu's (2048 rows, LN at C = 512, GELU+GRN at 1024) and
+    a wide-C shape (LN at 2048, GELU+GRN at 4096), in bf16 and f32; the
+    GELU+GRN cluster kernel (long P, P past one TMA box, conv_mfu, wide C)
+    launched twice for bit-equal results, and the two-pass kernel forced at
+    the train and conv_mfu shapes; the public ops' tangents and gradients
+    in f32 at the train shape; times of the bf16 train shape, the dtype of
+    the train path, and of the bf16 conv_mfu shape (keys ending
+    ``_conv_mfu``), where the cluster and the two-pass kernels are also
+    timed in turns (``grn_in_turns_conv_mfu``)."""
     gen = torch.Generator(device=device).manual_seed(4)
     results = {name: {"max_abs_err": 0.0} for name in stage_cuda.launches}
     n_train = TRAIN_CLIPS * num_frames_for_length(CLIP_LEN, 512, 256)
@@ -996,8 +1030,10 @@ def check_stage_kernels(device: torch.device) -> dict:
     for label, (n, p, c) in [("train", (n_train, 64, 256)),
                              ("ragged", (3, 9, 40)), ("ragged", (3, 9, 41)),
                              ("long P", (4, 256, 256)),
+                             ("ragged long P", (3, 301, 128)),
                              # benchmark_conv_mfu's ch512 rows at batch 2048
-                             ("conv_mfu", (2048, 64, 512))]:
+                             ("conv_mfu", (2048, 64, 512)),
+                             ("wide C", (8, 64, 2048))]:
         for dtype in (torch.bfloat16, torch.float32):
             x, s, b = _stage_inputs(n, p, c, dtype, gen, device)
             x2 = _stage_inputs(n, p, 2 * c, dtype, gen, device)[0]
@@ -1007,7 +1043,7 @@ def check_stage_kernels(device: torch.device) -> dict:
             cases = _stage_cases(x, s, b, x2, gamma, beta)
             variant = stage_cuda.gelu_grn_variant(x2)
             variants_checked.add(variant)
-            if label == "train":  # the two-pass kernel where it is not chosen
+            if label in ("train", "conv_mfu"):  # two pass, where not chosen
                 cases["gelu_grn_cuda two_pass"] = (
                     lambda: gelu_grn_two_pass(x2, gamma, beta),
                     *cases["gelu_grn_cuda"][1:])
@@ -1025,11 +1061,22 @@ def check_stage_kernels(device: torch.device) -> dict:
                 torch.testing.assert_close(got[0], ref[0], **tol)
                 for g, r in zip(got[1:], ref[1:]):
                     torch.testing.assert_close(g, r, **STAGE_F32)
+                if name == "gelu_grn_cuda" and variant == "cluster":
+                    again = kernel()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{name} {label} {dtype}: two "
+                                             "launches differ")
+                    print(f"{name} (cluster) {label}: a second launch gives "
+                          "the same bits", flush=True)
                 res = results[name.split()[0]]
                 res["max_abs_err"] = max(res["max_abs_err"], err, stat_err)
-                if label == "conv_mfu" and dtype == torch.bfloat16:
+                if (label == "conv_mfu" and dtype == torch.bfloat16
+                        and name != "gelu_grn_cuda two_pass"):
                     _time_stage_kernel(res, name, kernel, plain, library,
                                        args[0], "_conv_mfu")
+                    if name == "gelu_grn_cuda":
+                        res["grn_in_turns_conv_mfu"] = grn_in_turns(
+                            label, x2, gamma, beta)
                 if label != "train":
                     continue
                 if name == "gelu_grn_cuda two_pass":
@@ -1061,6 +1108,48 @@ def check_stage_kernels(device: torch.device) -> dict:
     if variants_checked != set(stage_cuda.gelu_grn_variants):
         raise AssertionError(f"GELU+GRN kernels checked: {variants_checked}")
     return results
+
+
+def grn_only(device: torch.device, card: str) -> dict:
+    """``--grn-only``: GELU+GRN in bf16 at benchmark_conv_mfu's ch512 shape
+    [2048, 64, 1024] and at the train shape [2032, 64, 512], each checked
+    against the plain version and then timed through the wrapper's kernel
+    in turns with the forced two-pass kernel (``grn_in_turns``); then
+    benchmark_conv_mfu's fused ch512 row through its ``main``, its launches
+    counted, and phase 5's fused bf16 train step (frontier-v2 width, whose
+    GELU+GRN takes the single read). It calls only what the port had before
+    the cluster kernel, so this script, copied into the parent commit's
+    tree, times the parent there in the same call."""
+    from meanflow_audio_codec_torch.tools.benchmarks import benchmark_conv_mfu
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    n_train = TRAIN_CLIPS * num_frames_for_length(CLIP_LEN, 512, 256)
+    out = {}
+    for label, (n, p, c) in (("conv_mfu", (2048, 64, 1024)),
+                             ("train", (n_train, 64, 512))):
+        x = _stage_inputs(n, p, c, torch.bfloat16, gen, device)[0]
+        gamma = 0.5 * torch.randn(c, generator=gen, device=device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=device)
+        got = stage_cuda.gelu_grn_cuda(x, gamma, beta)
+        ref = stage._gelu_grn_ref(x, gamma, beta)
+        torch.testing.assert_close(got[0], ref[0], **STAGE_BF16)
+        torch.testing.assert_close(got[1], ref[1], **STAGE_F32)
+        out[label] = grn_in_turns(label, x, gamma, beta)
+    del x, got, ref
+    torch.cuda.empty_cache()
+    zero_launches()
+    (row,) = run_tool(card, benchmark_conv_mfu, "--configs",
+                      "ch512_s8_lift64_bn1024_b2048_dots_fused")
+    torch.cuda.synchronize()
+    out["conv_mfu_fused"] = {"mfu": row["mfu"],
+                             "steps_per_sec": row["steps_per_sec"],
+                             "launches": read_launches()}
+    print(f"conv_mfu ch512 fused: MFU {row['mfu']}, "
+          f"{row['steps_per_sec']} steps/s, launches "
+          f"{out['conv_mfu_fused']['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    out["fused_train_step_ms"] = train_path(device, card)[4]["step_ms"]
+    return out
 
 
 def frontier_config(precision: str, fused: bool, options: dict | None = None,
@@ -3352,6 +3441,11 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
                 or (min(stages) == 0 if label.endswith("fused")
                     else max(stages) != 0)):
             raise AssertionError(f"{label}: launches {launches}")
+        # GELU+GRN at 1024 channels: every launch the cluster kernel's
+        if launches["gelu_grn_variants"]["cluster"] != launches[
+                "gelu_grn_cuda"]:
+            raise AssertionError(f"{label}: GELU+GRN kernels "
+                                 f"{launches['gelu_grn_variants']}")
         if row["params_m"] != round(TIMING_PARAMS[config] / 1e6, 1):
             raise AssertionError(f"{label}: params_m {row['params_m']}")
 
@@ -4300,6 +4394,11 @@ def main() -> int:
     parser.add_argument("--proj-only", action="store_true",
                         help="the build, then phase 18 (the proj trials) "
                              "alone")
+    parser.add_argument("--grn-only", action="store_true",
+                        help="the CUDA kernels' build, then GELU+GRN timed "
+                             "in turns with its two-pass kernel, "
+                             "benchmark_conv_mfu's fused ch512 row and the "
+                             "fused train step alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4337,6 +4436,10 @@ def main() -> int:
         return 0
     if args.jvp_tape:
         jvp_tape_probe(device, card)
+        return 0
+    if args.grn_only:
+        sass_profile(("stage",))
+        print(json.dumps({"grn": grn_only(device, card)}), flush=True)
         return 0
     if args.parallel_only:
         with tempfile.TemporaryDirectory() as tmp:

@@ -21,7 +21,7 @@
 // third reads hit L1, so device memory sees it once. FiLM's scale/shift row
 // is row / P.
 //
-// GELU+GRN, two kernels chosen by shape alone (ops/stage_cuda.py):
+// GELU+GRN, three kernels chosen by shape alone (ops/stage_cuda.py):
 //
 // single read (gelu_grn_single_read_forward), whenever a thread of a
 // 512-thread block can hold its share of the [P, C] slice in 64 registers
@@ -44,17 +44,52 @@
 // ~36 instructions per element (chip_smoke.py prints its mix), and 16 warps
 // per SM, all passing the same barriers, hide only part of the latency.
 //
-// two pass (gelu_grn_two_pass_forward), for the shapes whose slice does not
-// fit (long P, very wide C): one block per batch row n, threads walking the
-// channels (16-byte loads where possible). Each thread sums g^2 over the P
-// positions of its channels, writes gx, and a block reduction gives mean_C
-// gx. A second pass recomputes g from x (the slice is read again, from L2
-// where it is still there) and writes y.
+// cluster (gelu_grn_cluster_forward), for the slices too large for one
+// block's registers (ConvNeXt widths >= 512, where the expand layer gives
+// C = 1024 at 64 positions; long P): the same single-read kernel spread over
+// a thread-block cluster of k = 2, 4 or 8 blocks, the smallest k whose
+// channel chunk fits. Block r of the cluster owns the chunk [P, r C/k,
+// (r+1) C/k) of each row and does for it what the single read does for a
+// whole slice: ring, one GELU, g in registers, the per-channel sums (gx
+// needs nothing from the other blocks). The one quantity shared across the
+// cluster is mean_C gx: each block pushes its partial sum of gx into a slot
+// of every block's shared memory (st.async through distributed shared
+// memory, counted in bytes on that block's mbarrier), and every block adds
+// the k slots in rank order, so all blocks get the same mean, bit for bit,
+// run after run. The slots are double-buffered by row parity: a block
+// pushes into a slot again only after the next row's pushes from every
+// block have reached it, and each block makes those after it has read the
+// slot. So the row loop needs no cluster barrier, which costs more than
+// the pushes (one stands at the start and one at the end). Loads: a chunk
+// is P strided runs of C/k values; a 3D tensor map (x as [N][P][C],
+// cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint, made for
+// each launch) brings it as a few boxes of at most 256 positions by 256
+// channels, all issued by one thread (one 1D bulk copy per position would
+// keep the issuing warp busy too long: 64 copies a row at the conv_mfu
+// shape). A k is taken only where a chunk's run is a multiple of 128 bytes
+// (a box's shared-memory alignment) and x is 16-byte aligned. The clusters
+// are persistent: the grid is as many clusters as
+// cudaOccupancyMaxActiveClusters allows (at most one a batch row), each
+// walking rows cluster_id, cluster_id + clusters, ... HBM sees x read once,
+// as in the single read, where the two-pass kernel reads it twice and
+// evaluates GELU twice.
+//
+// two pass (gelu_grn_two_pass_forward), for what no cluster of <= 8 blocks
+// takes (very long P, P = 0, unaligned x, chunk runs that are no multiple
+// of 128 bytes): one block per batch row n, threads walking the channels
+// (16-byte loads where possible). Each thread sums g^2 over the P positions
+// of its channels, writes gx, and a block reduction gives mean_C gx. A
+// second pass recomputes g from x (the slice is read again, from L2 where
+// it is still there) and writes y.
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (the driver is reached by entry point)
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -69,6 +104,9 @@ constexpr int kGrnMaxThreads = 256;  // two-pass GELU+GRN block
 constexpr int kGrnHeld = 64;         // g values a single-read thread holds
 constexpr int kGrnSingleThreads = 512;
 constexpr unsigned kGrnBulkBytes = 16384;  // one TMA bulk copy
+constexpr int kGrnMaxSplit = 8;  // blocks a cluster spreads a row over (portable)
+constexpr int kGrnBoxMax = 256;  // a TMA box's extent in each dimension
+constexpr int kGrnBoxAlign = 128;  // bytes: a TMA box's shared-memory address
 
 // Slices in the single-read kernel's shared-memory ring: three 64 KB bf16
 // slices at the train shape (one read, two loading), one 128 KB f32 slice.
@@ -80,6 +118,33 @@ __host__ __device__ constexpr int grn_buffers() {
 // Floats the ring takes, rounded up to 16 bytes so what follows is aligned.
 __host__ __device__ constexpr long long ring_floats(long long bytes) {
   return (bytes + 15) / 16 * 4;
+}
+
+// The TMA boxes that bring a cluster block's chunk [P, CK] of a row into
+// shared memory: boxes of bw channels by bp positions, bw the widest
+// multiple of kGrnBoxAlign bytes that divides CK and is at most kGrnBoxMax
+// values (CK * sizeof(T) is a multiple of kGrnBoxAlign), bp = P split evenly
+// into at most kGrnBoxMax positions. The chunk lies in shared memory as CK /
+// bw columns of [rows][bw], rows = bp * ceil(P / bp) >= P (a last box that
+// runs past P is filled with zeros), so every box starts 128-byte aligned.
+struct GrnBoxes {
+  int bw, bp, rows;
+};
+
+// The cluster kernel's tensor map; the single-read kernel takes none, so
+// its launch stays as it was before the cluster kernel.
+struct NoMap {};
+template <bool kCluster>
+using GrnMap = std::conditional_t<kCluster, CUtensorMap, NoMap>;
+
+template <typename T>
+__host__ __device__ inline GrnBoxes grn_boxes(int P, int CK) {
+  constexpr int unit = kGrnBoxAlign / static_cast<int>(sizeof(T));
+  int per = kGrnBoxMax / unit;  // units a box may take
+  while ((CK / unit) % per != 0) --per;
+  const int along = (P + kGrnBoxMax - 1) / kGrnBoxMax;
+  const int bp = (P + along - 1) / along;
+  return {per * unit, bp, bp * ((P + bp - 1) / bp)};
 }
 
 // V consecutive values of T moved as one aligned load or store.
@@ -227,6 +292,38 @@ __device__ __forceinline__ void mbar_wait(std::uint64_t* bar,
   } while (!done);
 }
 
+// One box of a 3D tensor map (channel, position, row) into shared memory.
+__device__ __forceinline__ void box_load(void* dst, const CUtensorMap* map,
+                                         int c, int p, int n,
+                                         std::uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<std::uint64_t>(map)), "r"(c), "r"(p), "r"(n),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// v into the float at `slot` of block `rank` of the cluster, its arrival
+// counted (4 bytes) on that block's mbarrier at `bar`; slot and bar are
+// this block's shared addresses of the same variables.
+__device__ __forceinline__ void push_to_rank(float* slot, std::uint64_t* bar,
+                                             unsigned rank, float v) {
+  unsigned remote_slot, remote_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_slot)
+               : "r"(smem_addr(slot)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_bar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(remote_slot),
+      "r"(__float_as_uint(v)), "r"(remote_bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes, std::uint64_t* bar) {
   asm volatile(
@@ -245,37 +342,83 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // cv*V + V) at positions pg + i*PG, i < kGrnHeld / V, and keeps their g in
 // registers from the GELU to the store. C % V == 0; the first (C/V)*PG
 // threads are active, the rest only join the reductions.
-template <typename T, int V>
+//
+// kCluster: launched in clusters of `split` blocks (V > 1). Cluster q takes
+// rows q, q + clusters, ...; its block of rank r reads and writes only the
+// channels [r*CK, r*CK + CK), CK = C / split, as if they were the whole
+// slice: the chunk arrives as the boxes of grn_boxes through the tensor map
+// `map` (x as [N][P][C]), and each block pushes its partial sum of gx into
+// every block's shared memory (st.async, counted on that block's mbarrier).
+template <typename T, int V, bool kCluster>
 __global__ void __launch_bounds__(kGrnSingleThreads, 1)
 gelu_grn_single_read_kernel(const T* __restrict__ x,
                             const float* __restrict__ gamma,
                             const float* __restrict__ beta, T* __restrict__ y,
                             float* __restrict__ gx_out, long long N, int P,
-                            int C, int PG) {
+                            int C, int PG, int split,
+                            const __grid_constant__ GrnMap<kCluster> map) {
+  namespace cg = cooperative_groups;
   constexpr int NV = kGrnHeld / V;
   constexpr int kBuffers = grn_buffers<T>();
   extern __shared__ float4 grn_smem4[];
-  const long long slice = static_cast<long long>(P) * C;
-  T* ring = reinterpret_cast<T*>(grn_smem4);  // [kBuffers][P][C]
-  float* part = reinterpret_cast<float*>(grn_smem4) +  // [PG][C]
-                ring_floats(kBuffers * slice * sizeof(T));
-  float* gxs = part + PG * C;                 // [C]
-  float* warp_part = gxs + C;                 // [32]
-  const int CV = C / V;
+  // the channels this block owns: the whole row, or its rank's chunk
+  const int CK = kCluster ? C / split : C;
+  const unsigned rank = kCluster ? cg::this_cluster().block_rank() : 0;
+  const int c0 = static_cast<int>(rank) * CK;
+  const GrnBoxes box =
+      kCluster ? grn_boxes<T>(P, CK) : GrnBoxes{CK, P, P};
+  const long long first = kCluster ? blockIdx.x / split : blockIdx.x;
+  const long long stride = kCluster ? gridDim.x / split : gridDim.x;
+  const long long slice = static_cast<long long>(P) * C;  // a row of x
+  // what a ring slot holds: [P][C], or the chunk's columns [rows][bw]
+  const long long chunk = static_cast<long long>(box.rows) * CK;
+  char* base = reinterpret_cast<char*>(grn_smem4);
+  if constexpr (kCluster)  // TMA boxes land on 128-byte boundaries
+    base += (kGrnBoxAlign - smem_addr(base) % kGrnBoxAlign) % kGrnBoxAlign;
+  T* ring = reinterpret_cast<T*>(base);  // [kBuffers][chunk]
+  float* part = reinterpret_cast<float*>(base) +  // [PG][CK]
+                ring_floats(kBuffers * chunk * sizeof(T));
+  float* gxs = part + PG * CK;                // [CK]
+  float* warp_part = gxs + CK;                // [32]
+  float* sums = warp_part + 32;  // kCluster: [2][split] partials by rank
+  const int CV = CK / V;
   const bool active = threadIdx.x < CV * PG;
   const int c = (threadIdx.x % CV) * V;
   const int pg = threadIdx.x / CV;
+  // this thread's channels in a slot, and the step from one position to
+  // the next
+  const int col = kCluster ? (c / box.bw) * box.rows * box.bw + c % box.bw
+                           : c;
+  const int pstep = kCluster ? box.bw : CK;
 
   __shared__ std::uint64_t full[kBuffers];  // slot b holds its next slice
+  __shared__ std::uint64_t pushed[2];  // kCluster: a row's partials arrived
   if (threadIdx.x == 0) {
     for (int b = 0; b < kBuffers; ++b) mbar_init(&full[b]);
+    if constexpr (kCluster) {
+      mbar_init(&pushed[0]);
+      mbar_init(&pushed[1]);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // no block pushes a partial before every block's mbarriers exist
+  if constexpr (kCluster) cg::this_cluster().sync();
   auto issue = [&](long long n, int buf) {
     if (n >= N) return;
+    T* dst = ring + buf * chunk;
+    if constexpr (kCluster) {
+      if (threadIdx.x == 0) {
+        mbar_expect_bytes(&full[buf],
+                          static_cast<unsigned>(chunk * sizeof(T)));
+        for (int bc = 0; bc < CK; bc += box.bw)
+          for (int bp = 0; bp < P; bp += box.bp)
+            box_load(dst + (bc / box.bw) * box.rows * box.bw + bp * box.bw,
+                     &map, c0 + bc, bp, static_cast<int>(n), &full[buf]);
+      }
+      return;
+    }
     const T* src = x + n * slice;
-    T* dst = ring + buf * slice;
     if constexpr (V > 1) {  // slice * sizeof(T) is a multiple of 16
       if (threadIdx.x == 0) {
         const unsigned bytes = static_cast<unsigned>(slice * sizeof(T));
@@ -295,15 +438,14 @@ gelu_grn_single_read_kernel(const T* __restrict__ x,
   // steps is issued before row n is computed, into the slot row n-1 freed;
   // with one slot, after row n has been read
   constexpr int kAhead = kBuffers > 1 ? kBuffers - 1 : 1;
-  for (int b = 0; b < kAhead; ++b)
-    issue(blockIdx.x + static_cast<long long>(b) * gridDim.x, b);
+  for (int b = 0; b < kAhead; ++b) issue(first + b * stride, b);
 
   int buf = 0;
   unsigned parity = 0;  // bit b: the phase of slot b's next arrival
-  for (long long n = blockIdx.x; n < N; n += gridDim.x) {
+  unsigned row = 0;     // rows this block has taken (kCluster: the slot)
+  for (long long n = first; n < N; n += stride, ++row) {
     if constexpr (kBuffers > 1)
-      issue(n + static_cast<long long>(kAhead) * gridDim.x,
-            buf == 0 ? kBuffers - 1 : buf - 1);
+      issue(n + kAhead * stride, buf == 0 ? kBuffers - 1 : buf - 1);
     if constexpr (V > 1) {
       mbar_wait(&full[buf], (parity >> buf) & 1u);
       parity ^= 1u << buf;
@@ -313,12 +455,12 @@ gelu_grn_single_read_kernel(const T* __restrict__ x,
     float acc[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[v] = 0.f;
-    const T* xs = ring + buf * slice;
+    const T* xs = ring + buf * chunk;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int p = pg + i * PG;
       if (active && p < P) {
-        load<T, V>(xs + static_cast<long long>(p) * C + c, g[i]);
+        load<T, V>(xs + static_cast<long long>(p) * pstep + col, g[i]);
       } else {
 #pragma unroll
         for (int v = 0; v < V; ++v) g[i][v] = 0.f;  // gelu(0) = 0 adds nothing
@@ -331,20 +473,20 @@ gelu_grn_single_read_kernel(const T* __restrict__ x,
     }
     if (active) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) part[pg * C + c + v] = acc[v];
+      for (int v = 0; v < V; ++v) part[pg * CK + c + v] = acc[v];
     }
     __syncthreads();  // the ring slot is read
-    if constexpr (kBuffers == 1) issue(n + gridDim.x, 0);
+    if constexpr (kBuffers == 1) issue(n + stride, 0);
     buf = buf + 1 == kBuffers ? 0 : buf + 1;
 
     float local = 0.f;
-    for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
+    for (int ch = threadIdx.x; ch < CK; ch += blockDim.x) {
       float total = 0.f;
-      for (int q = 0; q < PG; ++q) total += part[q * C + ch];
+      for (int q = 0; q < PG; ++q) total += part[q * CK + ch];
       const float gx = sqrtf(total + kGrnSqEps);
       gxs[ch] = gx;
       local += gx;
-      gx_out[n * C + ch] = gx;
+      gx_out[n * C + c0 + ch] = gx;
     }
     local = warp_sum(local);
     if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = local;
@@ -352,15 +494,32 @@ gelu_grn_single_read_kernel(const T* __restrict__ x,
     float total = 0.f;
     for (int w = 0; w < static_cast<int>(blockDim.x) / 32; ++w)
       total += warp_part[w];
+    if constexpr (kCluster) {
+      // row n's partials, one a block, pushed into every block's slots and
+      // added in rank order by every block. The slots alternate with the
+      // row: a block pushes into slot (row & 1) again only after the pushes
+      // of row + 1 have reached it, which every block makes after it has
+      // read its row-slot partials.
+      const unsigned s = row & 1u;
+      float* slots = sums + s * split;
+      if (threadIdx.x == 0) {
+        mbar_expect_bytes(&pushed[s], 4u * split);
+        for (int r = 0; r < split; ++r)
+          push_to_rank(slots + rank, &pushed[s], r, total);
+      }
+      mbar_wait(&pushed[s], (row >> 1) & 1u);
+      total = 0.f;
+      for (int r = 0; r < split; ++r) total += slots[r];
+    }
     const float m = total / static_cast<float>(C) + kGrnMeanEps;
     if (!active) continue;
     float scale[V], bias[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      scale[v] = gamma[c + v] + gxs[c + v] / m;
-      bias[v] = beta[c + v];
+      scale[v] = gamma[c0 + c + v] + gxs[c + v] / m;
+      bias[v] = beta[c0 + c + v];
     }
-    T* yn = y + n * slice;
+    T* yn = y + n * slice + c0;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int p = pg + i * PG;
@@ -371,6 +530,8 @@ gelu_grn_single_read_kernel(const T* __restrict__ x,
       store<T, V>(yn + static_cast<long long>(p) * C + c, out);
     }
   }
+  // no block leaves while a push may still be on its way to it
+  if constexpr (kCluster) cg::this_cluster().sync();
 }
 
 // Block n: g = gelu(x[n]) over [P, C]; gx[c] = sqrt(sum_p g^2 + eps);
@@ -452,7 +613,9 @@ constexpr int kBF16 = 1;
 // errors other than CUDA's own
 constexpr int kErrGrid = -1;   // more rows than a launch grid holds
 constexpr int kErrDtype = -2;  // unknown dtype code
-constexpr int kErrShape = -3;  // the slice does not fit the single-read kernel
+constexpr int kErrShape = -3;  // grn_plan gives the shape to another kernel
+constexpr int kErrCluster = -4;  // no cluster of the plan's size fits an SM set
+constexpr int kErrTensorMap = -5;  // the driver refused the TMA tensor map
 constexpr long long kMaxGrid = 0x7fffffffLL;
 
 template <typename T, bool kFilm>
@@ -478,8 +641,7 @@ int launch_ln(const void* x, const void* scale, const void* shift, void* y,
 
 // The single-read kernel's position groups PG and block size for this
 // shape and vector width V; false when some thread would hold more than
-// kGrnHeld values of the [P, C] slice. ops/stage_cuda.py::gelu_grn_variant
-// mirrors it.
+// kGrnHeld values of the [P, C] slice.
 bool single_read_plan(int P, int C, int V, int* PG, int* threads) {
   if (P < 1 || C % V != 0 || C / V > kGrnSingleThreads) return false;
   const int vectors = C / V;
@@ -491,38 +653,138 @@ bool single_read_plan(int P, int C, int V, int* PG, int* threads) {
   return true;
 }
 
-template <typename T>
+// The blocks `split` a row is spread over: the smallest of 1, 2, 4, 8 whose
+// chunk of C / split channels fits single_read_plan (which then gives PG
+// and the block size for the chunk); 1 is the single-read kernel alone, more
+// a cluster, which needs 16-byte vectors (V * bytes == 16) and chunk rows of
+// a whole number of kGrnBoxAlign bytes, where its TMA boxes land (C /
+// split * bytes a multiple of 128). False when none fits (the two-pass
+// kernel's shapes). ops/stage_cuda.py::gelu_grn_split mirrors it.
+bool grn_plan(int P, int C, int V, int bytes, int* split, int* PG,
+              int* threads) {
+  for (int k = 1; k <= kGrnMaxSplit; k *= 2) {
+    if (k > 1 && (V * bytes != 16 || C % (k * (kGrnBoxAlign / bytes)) != 0))
+      return false;
+    if (single_read_plan(P, C / k, V, PG, threads)) {
+      *split = k;
+      return true;
+    }
+  }
+  return false;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to the
+// driver library).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const auto encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  return encode;
+}
+
+// The single-read kernel alone (kCluster false: the plan's split is 1) or in
+// clusters of the plan's split > 1 blocks; kErrShape when the plan differs.
+template <typename T, bool kCluster>
 int launch_grn_single_read(const void* x, const float* gamma,
                            const float* beta, void* y, float* gx, long long N,
                            int P, int C, cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   const int v = C % kV == 0 && aligned16(x, y) ? kV : 1;
-  int pg = 0, threads = 0;
-  if (!single_read_plan(P, C, v, &pg, &threads)) return kErrShape;
-  // ring [kBuffers][P][C], part [pg][C], gxs [C], warp_part [32]: at most
-  // 192 + 16 + 16 KB (P*C <= 512 * kGrnHeld, pg*C and C <= 512 * V floats)
+  int split = 0, pg = 0, threads = 0;
+  if (!grn_plan(P, C, v, sizeof(T), &split, &pg, &threads) ||
+      (split > 1) != kCluster)
+    return kErrShape;
+  const int ck = C / split;
+  const GrnBoxes box =
+      kCluster ? grn_boxes<T>(P, ck) : GrnBoxes{ck, P, P};
+  // ring [kBuffers][rows][ck], part [pg][ck], gxs [ck], warp_part [32]
+  // and, for a cluster, sums [2][split] and the ring's alignment: at most
+  // 192 + 16 + 16 KB (rows*ck <= 512 * kGrnHeld when P <= kGrnBoxMax; past
+  // it ck < 128 and the padding rows below 16 KB, gxs under 1 KB; pg*ck and
+  // ck <= 512 * V floats)
   const int smem = static_cast<int>(
-      sizeof(float) * (ring_floats(grn_buffers<T>() * sizeof(T) * P * C) +
-                       static_cast<size_t>(pg) * C + C + 32));
-  const auto kernel = v == kV ? &gelu_grn_single_read_kernel<T, kV>
-                              : &gelu_grn_single_read_kernel<T, 1>;
+      sizeof(float) *
+      (ring_floats(grn_buffers<T>() * sizeof(T) *
+                   static_cast<size_t>(box.rows) * ck) +
+       static_cast<size_t>(pg) * ck + ck + 32 +
+       (kCluster ? 2 * kGrnMaxSplit + kGrnBoxAlign / sizeof(float) : 0)));
+  auto kernel = &gelu_grn_single_read_kernel<T, kV, kCluster>;
+  if constexpr (!kCluster) {
+    if (v != kV) kernel = &gelu_grn_single_read_kernel<T, 1, false>;
+  }
+  const auto* xt = static_cast<const T*>(x);
+  auto* yt = static_cast<T*>(y);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int device = 0, sms = 0, per_sm = 0;
+  int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kCluster) {
+    // persistent clusters: as many as can be resident at once, at most one
+    // a row; none resident is a refusal, raised by the wrapper. The tensor
+    // map's row coordinate is an int.
+    if (N > kMaxGrid) return kErrGrid;
+    cudaLaunchAttribute attribute[1];
+    attribute[0].id = cudaLaunchAttributeClusterDimension;
+    attribute[0].val.clusterDim.x = split;
+    attribute[0].val.clusterDim.y = 1;
+    attribute[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(static_cast<unsigned>(sms / split * split));
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    config.attrs = attribute;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return kErrCluster;
+    config.gridDim = dim3(static_cast<unsigned>(
+        (N < clusters ? N : clusters) * split));
+    // x as [N][P][C], read a box of [bp][bw] at a time
+    const auto encode = tensor_map_encoder();
+    if (encode == nullptr) return kErrTensorMap;
+    CUtensorMap map;
+    cuuint64_t extent[3] = {static_cast<cuuint64_t>(C),
+                            static_cast<cuuint64_t>(P),
+                            static_cast<cuuint64_t>(N)};
+    cuuint64_t pitch[2] = {static_cast<cuuint64_t>(C) * sizeof(T),
+                           static_cast<cuuint64_t>(P) * C * sizeof(T)};
+    cuuint32_t box_extent[3] = {static_cast<cuuint32_t>(box.bw),
+                                static_cast<cuuint32_t>(box.bp), 1};
+    cuuint32_t unit_step[3] = {1, 1, 1};
+    if (encode(&map,
+               sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               3, const_cast<void*>(x), extent, pitch, box_extent, unit_step,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return kErrTensorMap;
+    err = cudaLaunchKernelEx(&config, kernel, xt, gamma, beta, yt, gx, N, P,
+                             C, pg, split, map);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // one persistent block per resident slot, each looping over rows
-  const long long slots =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = static_cast<unsigned>(N < slots ? N : slots);
-  kernel<<<blocks, threads, smem, stream>>>(static_cast<const T*>(x), gamma,
-                                            beta, static_cast<T*>(y), gx, N, P,
-                                            C, pg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // one persistent block per resident slot, each looping over rows
+    const long long slots =
+        static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    const unsigned blocks = static_cast<unsigned>(N < slots ? N : slots);
+    kernel<<<blocks, threads, smem, stream>>>(xt, gamma, beta, yt, gx, N, P, C,
+                                              pg, 1, NoMap{});
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -580,19 +842,35 @@ int ln_norm_forward(const void* x, void* y, float* mu, float* r,
 }
 
 // x [N, P, C] in `dtype`, gamma and beta [C] f32, y like x, gx [N, C] f32;
-// all contiguous on the current device. Returns kErrShape when the [P, C]
-// slice does not fit in a block's registers (the wrapper then calls
-// gelu_grn_two_pass_forward; it decides by shape alone, as single_read_plan
-// does).
+// all contiguous on the current device. Returns kErrShape when grn_plan does
+// not give this kernel the shape (the wrapper decides by shape alone, as
+// grn_plan does, and calls gelu_grn_cluster_forward or
+// gelu_grn_two_pass_forward instead).
 int gelu_grn_single_read_forward(const void* x, const float* gamma,
                                  const float* beta, void* y, float* gx,
                                  long long N, int P, int C, int dtype,
                                  void* stream) {
   if (dtype == kF32)
-    return launch_grn_single_read<float>(x, gamma, beta, y, gx, N, P, C,
-                                         static_cast<cudaStream_t>(stream));
+    return launch_grn_single_read<float, false>(
+        x, gamma, beta, y, gx, N, P, C, static_cast<cudaStream_t>(stream));
   if (dtype == kBF16)
-    return launch_grn_single_read<__nv_bfloat16>(
+    return launch_grn_single_read<__nv_bfloat16, false>(
+        x, gamma, beta, y, gx, N, P, C, static_cast<cudaStream_t>(stream));
+  return kErrDtype;
+}
+
+// The same function where one block's registers do not hold a slice: the
+// single-read kernel in clusters of 2, 4 or 8 blocks a row. kErrShape unless
+// grn_plan spreads the row over more than one block.
+int gelu_grn_cluster_forward(const void* x, const float* gamma,
+                             const float* beta, void* y, float* gx,
+                             long long N, int P, int C, int dtype,
+                             void* stream) {
+  if (dtype == kF32)
+    return launch_grn_single_read<float, true>(
+        x, gamma, beta, y, gx, N, P, C, static_cast<cudaStream_t>(stream));
+  if (dtype == kBF16)
+    return launch_grn_single_read<__nv_bfloat16, true>(
         x, gamma, beta, y, gx, N, P, C, static_cast<cudaStream_t>(stream));
   return kErrDtype;
 }

@@ -6,9 +6,11 @@ Counterpart of the Pallas kernels ``_ln_film_pallas``, ``_ln_norm_pallas`` and
 tensor goes to the plain version (``ops/stage_ref.py``); a CUDA tensor goes to
 the kernel, or the wrapper raises. ``launches`` counts kernel launches per
 wrapper. Unlike the TPU kernels, these take any shape: nothing here tiles
-by the TPU's (8, 128) layout. GELU+GRN has two kernels, chosen by shape
-alone (``gelu_grn_variant``); ``gelu_grn_variants`` counts each one's
-launches, and ``launches["gelu_grn_cuda"]`` counts both.
+by the TPU's (8, 128) layout. GELU+GRN has three kernels, chosen by shape
+alone (``gelu_grn_variant``): the single read, the single read spread over
+a thread-block cluster (``gelu_grn_split`` blocks a row) and the two-pass
+kernel; ``gelu_grn_variants`` counts each one's launches, and
+``launches["gelu_grn_cuda"]`` counts all three.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from meanflow_audio_codec_torch.ops import stage_ref
 #: kernel launches per wrapper since the counts were last set to 0
 launches = {"ln_film_cuda": 0, "ln_norm_cuda": 0, "gelu_grn_cuda": 0}
 #: GELU+GRN launches per kernel since the counts were last set to 0
-gelu_grn_variants = {"single_read": 0, "two_pass": 0}
+gelu_grn_variants = {"single_read": 0, "cluster": 0, "two_pass": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # kF32 / kBF16 in csrc/stage.cu
 _P = ctypes.c_void_p
@@ -43,6 +45,8 @@ def _kernels():
         # x, gamma, beta, y, gx, N, P, C, dtype, stream
         "gelu_grn_single_read_forward": [_P, _P, _P, _P, _P, _I64, _I32, _I32,
                                          _I32, _P],
+        "gelu_grn_cluster_forward": [_P, _P, _P, _P, _P, _I64, _I32, _I32,
+                                     _I32, _P],
         "gelu_grn_two_pass_forward": [_P, _P, _P, _P, _P, _I64, _I32, _I32,
                                       _I32, _P],
     }
@@ -92,16 +96,26 @@ def _check(name: str, x3: torch.Tensor, *others: tuple[str, torch.Tensor,
 
 _ERR_GRID = -1  # kErrGrid in csrc/stage.cu
 _ERR_SHAPE = -3  # kErrShape
+_ERR_CLUSTER = -4  # kErrCluster
+_ERR_TENSOR_MAP = -5  # kErrTensorMap
 # the single-read GELU+GRN kernel: g values a thread holds, threads a block
-# has (kGrnHeld, kGrnSingleThreads in csrc/stage.cu)
+# has (kGrnHeld, kGrnSingleThreads in csrc/stage.cu), blocks a row may be
+# spread over (up to kGrnMaxSplit), bytes a cluster chunk's rows come in
+# (kGrnBoxAlign)
 _GRN_HELD, _GRN_THREADS = 64, 512
+_GRN_SPLITS, _GRN_BOX_ALIGN = (1, 2, 4, 8), 128
 
 def _raise_on(err: int, name: str) -> None:
     if err == _ERR_GRID:
         raise ValueError(f"{name}: more rows than one launch grid holds")
     if err == _ERR_SHAPE:
-        raise ValueError(f"{name}: the slice does not fit the single-read "
+        raise ValueError(f"{name}: the shape belongs to another GELU+GRN "
                          "kernel")
+    if err == _ERR_CLUSTER:
+        raise RuntimeError(f"{name}: no cluster of the planned size can be "
+                           "resident on this card")
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError(f"{name}: the driver refused the TMA tensor map")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
@@ -159,20 +173,42 @@ def ln_norm_cuda(x3: torch.Tensor
     return y, mu, r
 
 
+def single_read_groups(positions: int, channels: int, v: int) -> int:
+    """The single-read kernel's position groups PG for a [positions,
+    channels] slice read ``v`` values at a time, or 0 when some thread of a
+    512-thread block would hold more than 64 values of it
+    (``single_read_plan`` in csrc/stage.cu)."""
+    if positions < 1 or channels % v or channels // v > _GRN_THREADS:
+        return 0
+    groups = min(_GRN_THREADS // (channels // v), positions)
+    return groups if -(-positions // groups) * v <= _GRN_HELD else 0
+
+
+def gelu_grn_split(x3: torch.Tensor) -> int:
+    """How many blocks the single-read GELU+GRN kernel spreads a batch row
+    of ``x3`` [N, P, C] over: the smallest of 1, 2, 4, 8 whose chunk of C/k
+    channels fits one block (``single_read_groups``), where k > 1 needs
+    16-byte loads (x aligned) and C/k values a multiple of 128 bytes (the
+    kernel's TMA boxes); 0 when none fits. Mirrors ``grn_plan`` in
+    csrc/stage.cu."""
+    _, p, c = x3.shape
+    vec = 16 // x3.element_size()
+    v = 1 if c % vec or x3.data_ptr() % 16 else vec  # y is fresh and aligned
+    for k in _GRN_SPLITS:
+        if k > 1 and (v == 1 or c % (k * _GRN_BOX_ALIGN // x3.element_size())):
+            break
+        if single_read_groups(p, c // k, v):
+            return k
+    return 0
+
+
 def gelu_grn_variant(x3: torch.Tensor) -> str:
     """Which GELU+GRN kernel takes ``x3`` [N, P, C]: ``"single_read"`` when
-    each thread of one block can hold its share of a [P, C] slice in
-    registers (as ``single_read_plan`` in csrc/stage.cu decides), else
-    ``"two_pass"``."""
-    _, p, c = x3.shape
-    v = 16 // x3.element_size()
-    if c % v or x3.data_ptr() % 16:  # y is a fresh, aligned allocation
-        v = 1
-    vectors = c // v
-    if p < 1 or vectors > _GRN_THREADS:
-        return "two_pass"
-    groups = min(_GRN_THREADS // vectors, p)
-    return "single_read" if -(-p // groups) * v <= _GRN_HELD else "two_pass"
+    one block's threads hold a whole [P, C] slice in registers,
+    ``"cluster"`` when a cluster of 2, 4 or 8 blocks holds it
+    (``gelu_grn_split``), else ``"two_pass"``."""
+    k = gelu_grn_split(x3)
+    return {0: "two_pass", 1: "single_read"}.get(k, "cluster")
 
 
 def gelu_grn_cuda(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor

@@ -35,6 +35,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
 from meanflow_audio_codec_torch import weights
+from meanflow_audio_codec_torch.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -48,7 +49,9 @@ def create_mesh(data: int = -1, model: int = 1, devices: list | None = None,
     The sizes are checked as JAX checks them, before any group is touched;
     building the mesh needs the default process group
     (:func:`~meanflow_audio_codec_torch.parallel.initialize_distributed`).
-    ``device_type`` defaults to ``cuda`` when a card is present.
+    ``device_type`` defaults to ``cuda`` and raises without a card
+    (:func:`~meanflow_audio_codec_torch.device.resolve_device`); a mesh of
+    CPU ranks asks for ``device_type="cpu"``.
     """
     if devices is None:
         devices = list(range(dist.get_world_size()
@@ -67,8 +70,7 @@ def create_mesh(data: int = -1, model: int = 1, devices: list | None = None,
     if not dist.is_initialized():
         raise RuntimeError("a device mesh needs the default process group: "
                            "call initialize_distributed() first")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    device_type = resolve_device(device_type or "cuda").type
     grid = torch.tensor(devices, dtype=torch.int64).reshape(data, model)
     return DeviceMesh(device_type, grid, mesh_dim_names=(DATA_AXIS,
                                                          MODEL_AXIS))

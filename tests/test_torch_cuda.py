@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA MDCT/IMDCT kernels against their plain
 versions (TF32 off) at the tests/test_mdct_pallas.py geometries, the stage
 kernels against theirs at the train shape and ragged shapes (GELU+GRN's
-single-read kernel) and a long-P shape (its two-pass kernel), the stage ops'
+single-read kernel), a long-P shape and the wide-C shapes (its cluster
+kernel, run twice for bit-equal results; its two-pass kernel forced at
+one of them), the mesh that defaults to the card, the stage ops'
 tangents and gradients, and the wrappers' checks. Skips without CUDA. Runs
 on a GPU machine with
 
@@ -195,7 +197,7 @@ STAGE_SHAPES = [
     (3, 9, 40),       # ragged, 16-byte loads
     (3, 9, 41),       # ragged, scalar loads
     (1, 1, 1),
-    (4, 256, 256),    # long P: GRN takes its two-pass kernel
+    (4, 256, 256),    # long P: GRN takes its cluster kernel (2 blocks)
 ]
 STAGE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
              torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -243,7 +245,7 @@ def test_gelu_grn_kernel_matches_plain(device, n, p, c, dtype):
     gen = torch.Generator(device).manual_seed(1)
     gamma = 0.5 * torch.randn(c, generator=gen, device=device)
     beta = 0.1 * torch.randn(c, generator=gen, device=device)
-    variant = "two_pass" if p == 256 else "single_read"
+    variant = "cluster" if p == 256 else "single_read"
     assert stage_cuda.gelu_grn_variant(x) == variant
     before = dict(stage_cuda.gelu_grn_variants)
     got = _launched("gelu_grn_cuda",
@@ -253,6 +255,104 @@ def test_gelu_grn_kernel_matches_plain(device, n, p, c, dtype):
     ref = stage._gelu_grn_ref(x, gamma, beta)
     torch.testing.assert_close(got[0], ref[0], **STAGE_TOL[dtype])
     torch.testing.assert_close(got[1], ref[1], **STATS_TOL)
+
+
+#: (N, P, C) -> blocks a row; the conv_mfu ch512 rows, long P, wide C, and
+#: P past one TMA box (two boxes of 151 positions, the last one's row past
+#: P filled with zeros)
+CLUSTER_SHAPES = {(2048, 64, 1024): 2, (4, 256, 512): 4, (8, 64, 4096): 8,
+                  (3, 301, 256): 4}
+
+
+def _two_pass(x, gamma, beta):
+    """The two-pass kernel past the wrapper's choice by shape."""
+    n, p, c = x.shape
+    y = torch.empty_like(x)
+    gx = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    err = stage_cuda._kernels().gelu_grn_two_pass_forward(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        gx.data_ptr(), n, p, c, stage_cuda._DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    assert err == 0
+    return y, gx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,p,c", list(CLUSTER_SHAPES), ids=str)
+def test_gelu_grn_cluster_kernel_matches_plain(device, n, p, c, dtype):
+    """The cluster kernel at the plan's k: one launch counted under
+    ``cluster``, y and gx within the stage tolerances of the plain version,
+    the same bits from a second launch; the forced two-pass kernel too."""
+    x, _, _ = _stage_inputs(device, n, p, c, dtype)
+    gen = torch.Generator(device).manual_seed(1)
+    gamma = 0.5 * torch.randn(c, generator=gen, device=device)
+    beta = 0.1 * torch.randn(c, generator=gen, device=device)
+    assert (stage_cuda.gelu_grn_variant(x), stage_cuda.gelu_grn_split(x)) \
+        == ("cluster", CLUSTER_SHAPES[(n, p, c)])
+    before = dict(stage_cuda.gelu_grn_variants)
+    got = _launched("gelu_grn_cuda",
+                    lambda: stage_cuda.gelu_grn_cuda(x, gamma, beta))
+    again = _launched("gelu_grn_cuda",
+                      lambda: stage_cuda.gelu_grn_cuda(x, gamma, beta))
+    assert stage_cuda.gelu_grn_variants == {
+        k: v + 2 * (k == "cluster") for k, v in before.items()}
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ref = stage._gelu_grn_ref(x, gamma, beta)
+    for out in (got, _two_pass(x, gamma, beta)):
+        torch.testing.assert_close(out[0], ref[0], **STAGE_TOL[dtype])
+        torch.testing.assert_close(out[1], ref[1], **STATS_TOL)
+
+
+def test_gelu_grn_entry_points_refuse_the_other_kernels_shapes(device):
+    """Each single-read entry point launches only at the shapes its plan
+    gives it (kErrShape, -3, otherwise), and a refused cluster launch
+    raises: the wrapper never retries with another kernel."""
+    lib = stage_cuda._kernels()
+    for shape, wrong in (((2032, 64, 512), "cluster"),
+                         ((2048, 64, 1024), "single_read")):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        c = shape[2]
+        gamma = torch.zeros(c, device=device)
+        y = torch.empty_like(x)
+        gx = torch.empty((shape[0], c), device=device)
+        err = getattr(lib, f"gelu_grn_{wrong}_forward")(
+            x.data_ptr(), gamma.data_ptr(), gamma.data_ptr(), y.data_ptr(),
+            gx.data_ptr(), shape[0], shape[1], c, 1,
+            torch.cuda.current_stream(device).cuda_stream)
+        assert err == -3
+    x = torch.zeros((2048, 64, 1024), dtype=torch.bfloat16, device=device)
+    gamma = torch.zeros(1024, device=device)
+
+    for code, message in ((913, "913"), (-4, "resident")):  # CUDA's, kErrCluster
+        class Refusing:
+            def __getattr__(self, name, code=code):
+                if name != "gelu_grn_cluster_forward":
+                    raise AssertionError(f"{name} called after a refusal")
+                return lambda *args: code
+        before = (dict(stage_cuda.launches),
+                  dict(stage_cuda.gelu_grn_variants))
+        real = stage_cuda._kernels
+        stage_cuda._kernels = Refusing
+        try:
+            with pytest.raises(RuntimeError, match=message):
+                stage_cuda.gelu_grn_cuda(x, gamma, gamma)
+        finally:
+            stage_cuda._kernels = real
+        assert (stage_cuda.launches, stage_cuda.gelu_grn_variants) == before
+
+
+def test_create_mesh_defaults_to_the_card(device):
+    """``create_mesh()`` without ``device_type`` builds a CUDA mesh."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from meanflow_audio_codec_torch.parallel import create_mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        assert create_mesh().device_type == "cuda"
+    finally:
+        dist.destroy_process_group()
 
 
 def _chain(fn):

@@ -22,6 +22,8 @@ EMA (the ranks run one thread and sum in another order; read: 1e-8 on the
 parameters, 4e-7 on the moments).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +84,7 @@ from meanflow_audio_codec_torch.parallel import (
     create_mesh,
     global_batch_slice,
     initialize_distributed,
+    mesh_from_config,
     param_partition_spec,
     shard_state,
     state_shardings,
@@ -166,6 +169,22 @@ def test_mesh_construction(fake_world):
         with pytest.raises(ValueError) as theirs:
             jcreate_mesh(data=data, model=model)
         assert str(ours.value) == str(theirs.value)
+
+
+def test_mesh_asks_for_the_card(fake_world, monkeypatch):
+    """Without ``device_type`` the mesh is on the card and raises on a host
+    without one, as every entry point of the port does; there is no silent
+    CPU mesh. (JAX's ``create_mesh`` takes ``jax.devices()``, whatever the
+    default backend is.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fake_world()
+    config = types.SimpleNamespace(mesh_data=8, mesh_model=1)
+    for build in (create_mesh, lambda: mesh_from_config(config)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert create_mesh(device_type="cpu").device_type == "cpu"
+    with pytest.raises(ValueError, match="does not match"):  # still first
+        create_mesh(data=3, model=2)
 
 
 def test_mesh_coordinates_follow_the_rank(fake_world):

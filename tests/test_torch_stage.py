@@ -276,14 +276,24 @@ def test_backward_skips_inputs_without_grad():
     ((2032, 64, 512), torch.float32, "single_read"),
     ((3, 9, 41), torch.float32, "single_read"),        # scalar loads
     ((1, 1, 1), torch.bfloat16, "single_read"),
-    ((4, 256, 512), torch.bfloat16, "two_pass"),       # long P
-    ((4, 256, 512), torch.float32, "two_pass"),
-    ((2, 8, 8192), torch.bfloat16, "two_pass"),        # C / 8 > 512 threads
+    ((2048, 64, 1024), torch.bfloat16, "cluster2"),    # conv_mfu ch512
+    ((2048, 64, 1024), torch.float32, "cluster2"),
+    ((4, 256, 512), torch.bfloat16, "cluster4"),       # long P
+    ((4, 256, 512), torch.float32, "cluster4"),
+    ((8, 64, 4096), torch.bfloat16, "cluster8"),
+    ((3, 301, 256), torch.float32, "cluster4"),        # two TMA boxes along P
+    ((2, 8, 8192), torch.bfloat16, "cluster2"),        # C / 8 > 512 threads
+    ((1, 4096, 512), torch.bfloat16, "two_pass"),      # no cluster of 8 holds it
+    ((2, 64, 1056), torch.bfloat16, "two_pass"),       # C/2: 1056 B, not 128s
     ((2, 0, 8), torch.float32, "two_pass"),
 ], ids=str)
 def test_gelu_grn_kernel_is_chosen_by_shape(shape, dtype, variant):
-    assert stage_cuda.gelu_grn_variant(torch.empty(shape, dtype=dtype)) == \
-        variant
+    """The kernel and, for a cluster, its blocks a row (the suffix)."""
+    x3 = torch.empty(shape, dtype=dtype)
+    kind = variant.rstrip("2468")
+    split = int(variant[len(kind):] or {"single_read": 1, "two_pass": 0}[kind])
+    assert (stage_cuda.gelu_grn_variant(x3),
+            stage_cuda.gelu_grn_split(x3)) == (kind, split)
 
 
 def test_gelu_grn_wrapper_runs_the_plain_version_on_cpu():
