@@ -17,6 +17,11 @@ or, from a model the caller builds:
     codec = AudioCodec(create_flow_model(config), state_dict, config)
     latents, gains = codec.encode_with_gains(audio)  # [B, nf, latent], [B, nf, 1]
     recon = codec.decode(latents, gains=gains)
+
+``encode_with_gains`` and ``decode`` are the root spans ``codec.encode``
+(over ``codec.tokenize`` and ``codec.encoder``) and ``codec.decode`` (over
+``codec.flow`` and ``codec.detokenize``), each counting its frame rows
+(``tracing``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.configs import CodecConfig, load_config
 from meanflow_audio_codec_torch.data.audio import TARGET_SAMPLE_RATE
 from meanflow_audio_codec_torch.device import resolve_device
@@ -131,16 +137,22 @@ class AudioCodec:
     def _encode_tokens(self, tokens: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
         """``[B, nf, W*C]`` MDCT tokens -> (latents, gains)."""
-        flat, gains = self.adapter.scale_and_gain(tokens)
-        b, nf = gains.shape[:2]
-        return self.model.encode(flat).reshape(b, nf, -1), gains
+        with tracing.span("codec.encoder"):
+            flat, gains = self.adapter.scale_and_gain(tokens)
+            b, nf = gains.shape[:2]
+            return self.model.encode(flat).reshape(b, nf, -1), gains
 
     def encode_with_gains(self, audio) -> tuple[torch.Tensor, torch.Tensor]:
         """``[B, T, C]`` audio -> (latents ``[B, nf, latent_dim]``, gains
         ``[B, nf, 1]``). Gains are all ones unless the config sets
         ``gain_norm``."""
-        return self._encode_tokens(self.adapter.strategy.tokenize(
-            self._tensor(audio, torch.float32)))
+        with tracing.root("codec.encode", self.device):
+            with tracing.span("codec.tokenize"):
+                tokens = self.adapter.strategy.tokenize(
+                    self._tensor(audio, torch.float32))
+            latents, gains = self._encode_tokens(tokens)
+            tracing.rows(latents, 2)
+        return latents, gains
 
     def encode(self, audio) -> torch.Tensor:
         """``[B, T, C]`` audio -> ``[B, nf, latent_dim]`` latents."""
@@ -159,19 +171,24 @@ class AudioCodec:
         time. ``gains`` restores the per-frame energy of a gain-normalised
         codec.
         """
-        latents = self._tensor(latents)
-        b, nf, _ = latents.shape
-        if noise is not None:
-            noise = self._tensor(noise)
-        elif generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        flat = sample_dual_time(self.model, self.noise_dim,
-                                latents.reshape(b * nf, -1), n_steps=int(nfe),
-                                noise=noise, generator=generator)
-        if gains is not None:
-            gains = self._tensor(gains)
-        return self.adapter.detokenize_flat(flat, (nf, self.noise_dim),
-                                            gains=gains)
+        with tracing.root("codec.decode", self.device):
+            latents = self._tensor(latents)
+            b, nf, _ = latents.shape
+            tracing.rows(latents, 2)
+            if noise is not None:
+                noise = self._tensor(noise)
+            elif generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            with tracing.span("codec.flow"):
+                flat = sample_dual_time(self.model, self.noise_dim,
+                                        latents.reshape(b * nf, -1),
+                                        n_steps=int(nfe), noise=noise,
+                                        generator=generator)
+            if gains is not None:
+                gains = self._tensor(gains)
+            with tracing.span("codec.detokenize"):
+                return self.adapter.detokenize_flat(
+                    flat, (nf, self.noise_dim), gains=gains)
 
     def roundtrip(self, audio, nfe: int = 1,
                   generator: torch.Generator | None = None,

@@ -12,6 +12,9 @@ Over a long run the pool is a sliding window over the stream.
 
 ``MeshDeviceReplayPool`` is the pool of a run sharded over a mesh's data
 axis: each data rank holds its own sub-pool on its device.
+
+``sample`` and ``refresh`` are the host spans ``pool.sample`` and
+``pool.refresh`` (``tracing``); a refresh counts ``skipped`` (0 or 1).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.parallel.mesh import axis_size
 
 #: int16 wire format: symmetric full-scale at this amplitude. Audio is
@@ -113,11 +117,8 @@ class DeviceReplayPool:
 
     def sample(self, k: int, batch: int) -> torch.Tensor:
         """A [k, batch, ...] training chunk gathered on the device."""
-        idx = self._rng.integers(0, self.pool_size, size=k * batch,
-                                 dtype=np.int32)
-        idx = self._host_tensor(idx).to(self.device, non_blocking=True)
-        return self.pool.index_select(0, idx).reshape(
-            (k, batch) + tuple(self.pool.shape[1:]))
+        with tracing.root("pool.sample"):
+            return self._sample(k, batch)
 
     def refresh(self, wait: bool = False) -> bool:
         """Overwrite the next slot group with a batch the producer made.
@@ -127,6 +128,20 @@ class DeviceReplayPool:
         ``wait=True`` blocks for the next batch. Returns True when a slot
         group was refreshed.
         """
+        with tracing.root("pool.refresh"):
+            skipped = self.skipped_refreshes
+            done = self._refresh(wait)
+            tracing.count("skipped", self.skipped_refreshes - skipped)
+        return done
+
+    def _sample(self, k: int, batch: int) -> torch.Tensor:
+        idx = self._rng.integers(0, self.pool_size, size=k * batch,
+                                 dtype=np.int32)
+        idx = self._host_tensor(idx).to(self.device, non_blocking=True)
+        return self.pool.index_select(0, idx).reshape(
+            (k, batch) + tuple(self.pool.shape[1:]))
+
+    def _refresh(self, wait: bool) -> bool:
         try:
             wire = self._queue.get() if wait else self._queue.get_nowait()
         except queue.Empty:
@@ -197,7 +212,7 @@ class MeshDeviceReplayPool(DeviceReplayPool):
         self.skipped_refreshes = 0  # empty-queue refresh skips (run logs)
         self._start_producer(prefetch)
 
-    def sample(self, k: int, batch: int) -> torch.Tensor:
+    def _sample(self, k: int, batch: int) -> torch.Tensor:
         """This rank's ``[k, batch / data_size, ...]`` chunk."""
         if batch % self.data_size:
             raise ValueError(
@@ -212,7 +227,7 @@ class MeshDeviceReplayPool(DeviceReplayPool):
         return self.pool.index_select(0, mine).reshape(
             (k, per_dev) + tuple(self.pool.shape[1:]))
 
-    def refresh(self, wait: bool = False) -> bool:
+    def _refresh(self, wait: bool) -> bool:
         """Write this rank's slice of one pre-produced host batch into its
         sub-pool; the contract of :meth:`DeviceReplayPool.refresh`."""
         try:

@@ -19,6 +19,9 @@ CUDA kernels on the card) with the same parameters as the plain branches.
 :class:`ConvNeXtBlock` serves their products in dynamic W8A8 int8
 (``ops/quant.py``, the JAX package's ``quant_injection``), with the same
 parameters, so a bf16 checkpoint loads unchanged.
+
+Each :class:`Dense` and :class:`Conv2d` call is a ``product`` span
+(``tracing``): its operand casts, padding, product and bias.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.models.remat import remat
 from meanflow_audio_codec_torch.ops.quant import int8_conv2d, int8_linear
 from meanflow_audio_codec_torch.ops.stage import (
@@ -48,6 +52,12 @@ class Dense(nn.Linear):
         self.quantized = quantized
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tracing.ON:  # a test of the flag alone on the hot path when off
+            with tracing.span("product"):
+                return self._product(x)
+        return self._product(x)
+
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         if self.quantized:
@@ -79,6 +89,12 @@ class Conv2d(nn.Conv2d):
         self.quantized = quantized
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tracing.ON:  # as Dense.forward
+            with tracing.span("product"):
+                return self._product(x)
+        return self._product(x)
+
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         k, s = self.kernel_size[0], self.stride[0]
         h_lo, h_hi = _same_padding(x.shape[1], k, s)

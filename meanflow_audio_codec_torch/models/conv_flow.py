@@ -16,6 +16,7 @@ import math
 import torch
 from torch import nn
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.models.blocks import (
     Conv2d,
     ConvNeXtBlock,
@@ -203,11 +204,14 @@ class ConditionalConvFlow(nn.Module):
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 latents: torch.Tensor | None = None) -> torch.Tensor:
-        cond = dual_time_embedding(time, self.condition_dimension).to(
-            self.compute_dtype)
-        if latents is not None:
-            cond = cond + self.latent_proj(latents.reshape(latents.shape[0], -1))
-        h = x.to(self.compute_dtype)
-        for stage in self.stages:
-            h = remat(stage, h, cond) if self.remat_stages else stage(h, cond)
-        return h
+        with tracing.span("flow.forward"):
+            cond = dual_time_embedding(time, self.condition_dimension).to(
+                self.compute_dtype)
+            if latents is not None:
+                cond = cond + self.latent_proj(
+                    latents.reshape(latents.shape[0], -1))
+            h = x.to(self.compute_dtype)
+            for stage in self.stages:
+                h = (remat(stage, h, cond) if self.remat_stages
+                     else stage(h, cond))
+            return h

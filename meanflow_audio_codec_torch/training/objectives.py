@@ -43,6 +43,7 @@ import torch.autograd.forward_ad as fwAD
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.configs import CodecConfig
 from meanflow_audio_codec_torch.ops import stage
 from meanflow_audio_codec_torch.ops.latent_quant import LatentQAT
@@ -146,14 +147,17 @@ class Objective:
         ``remat`` recomputes the loss in the backward pass, with the same
         draws (``jax.checkpoint`` of the loss); ``has_aux`` returns
         ``((loss, aux), grads)``, as ``jax.value_and_grad`` does."""
-        draws = self.draws_for(state, x, generator, **given)
+        with tracing.span("step.draws"):
+            draws = self.draws_for(state, x, generator, **given)
 
         def loss_fn():
             return self.loss(state.model, x, **draws)
 
-        loss, aux = (checkpoint(loss_fn, use_reentrant=False) if remat
-                     else loss_fn())
-        grads = list(torch.autograd.grad(loss, state.params))
+        with tracing.span("step.forward"):
+            loss, aux = (checkpoint(loss_fn, use_reentrant=False) if remat
+                         else loss_fn())
+        with tracing.span("step.backward"):
+            grads = list(torch.autograd.grad(loss, state.params))
         loss = loss.detach()
         return ((loss, aux) if has_aux else loss), grads
 

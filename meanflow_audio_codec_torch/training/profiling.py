@@ -2,12 +2,15 @@
 
 Counterpart of ``meanflow_audio_codec_tpu/training/profiling.py`` with the
 same record keys (``step_time``, ``avg_step_time``, ``achieved_tflops``,
-``mfu``, ``memory``). On the card:
+``mfu``, ``memory``); its summary adds ``phase_ms``, each step phase's
+mean device ms a step. On the card:
 
-  * a call's time ends with ``torch.cuda.synchronize()``: the trainer times
-    one chunk of K steps per call, so the host waits once per chunk;
-    ``device_time`` times repeated calls of one function the same way, its
-    end forced by ``force_completion`` (a synchronize and a host read);
+  * ``ProfilingTrainer`` turns the span store (``tracing``) on from
+    ``before_step`` to ``after_step`` and reads the chunk's time from its
+    ``train.chunk`` span: the chunk's device time, from CUDA events, read
+    once the chunk has finished; ``device_time`` times repeated calls of
+    one function on the host's clock, their end forced by
+    ``force_completion`` (a synchronize and a host read);
   * ``device_memory_stats`` reads ``torch.cuda.memory_allocated`` /
     ``max_memory_allocated`` and the card's total memory;
   * ``estimate_step_flops`` counts one probe step by the FLOP formulas of
@@ -16,13 +19,16 @@ same record keys (``step_time``, ``avg_step_time``, ``achieved_tflops``,
   * ``mfu`` divides by the card's dense bf16 peak, looked up by its name
     (:data:`PEAK_BF16_FLOPS`); a card that is not in the table gets no MFU;
   * ``TraceCapture(logdir)`` records ``torch.profiler``'s host and card
-    timeline and writes it as a Chrome trace under ``logdir`` (the JAX
-    package's xprof trace).
+    timeline and the program's spans and writes them as a Chrome trace
+    under ``logdir`` (the JAX package's xprof trace).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
+from collections import defaultdict
 from collections.abc import Mapping
 from pathlib import Path
 from typing import Any
@@ -31,6 +37,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.device import resolve_device
 
 #: dense bf16 peak FLOP/s by card name (NVIDIA's H100 SXM data sheet; the
@@ -140,8 +147,8 @@ def estimate_step_flops(probe, *args) -> float | None:
 
 
 class ProfilingTrainer:
-    """Wall-clock, memory and MFU instrumentation around the train loop, on
-    the card unless the caller passes ``device="cpu"`` (raises when there
+    """Device time, memory and MFU instrumentation around the train loop,
+    on the card unless the caller passes ``device="cpu"`` (raises when there
     is no card)."""
 
     def __init__(self, log_writer=None, window: int = 100,
@@ -153,7 +160,8 @@ class ProfilingTrainer:
         self.device = resolve_device(device)
         self.peak = peak_flops(self.device)
         self.step_times: list[float] = []
-        self._t_step = 0.0
+        self._phase_ms: defaultdict[str, float] = defaultdict(float)
+        self._steps = 0
         self._t_start = 0.0
         self.param_count: int | None = None
 
@@ -166,7 +174,7 @@ class ProfilingTrainer:
                                 memory=device_memory_stats(self.device))
 
     def before_step(self) -> None:
-        self._t_step = time.perf_counter()
+        tracing.on()
 
     def _rates(self, seconds: float) -> dict:
         if not self.flops_per_step:
@@ -177,8 +185,21 @@ class ProfilingTrainer:
         return rates
 
     def after_step(self, step: int) -> dict:
-        synchronize(self.device)
-        elapsed = time.perf_counter() - self._t_step
+        """The record of the chunk since :meth:`before_step`: its
+        ``train.chunk`` span's device time (``step_time``); the step
+        phases' device times add up for :meth:`end_training`."""
+        try:
+            spans = tracing.collect()
+        finally:
+            tracing.off()
+        chunks = [s for s in spans if s.name == "train.chunk"]
+        if not chunks:
+            raise RuntimeError("no train.chunk span since before_step()")
+        elapsed = sum(s.device_ms for s in chunks) / 1e3
+        for s in spans:
+            if s.name.startswith("step."):
+                self._phase_ms[s.name[5:]] += s.device_ms
+        self._steps += sum(s.name == "step" for s in spans)
         self.step_times.append(elapsed)
         if len(self.step_times) > self.window:
             self.step_times.pop(0)
@@ -196,6 +217,8 @@ class ProfilingTrainer:
             "total_time_hours": total / 3600.0,
             "steps_per_sec": total_steps / total if total > 0 else None,
             "param_count": self.param_count,
+            "phase_ms": {name: ms / self._steps
+                         for name, ms in self._phase_ms.items()},
         }
         if self.step_times:
             summary.update(self._rates(
@@ -207,23 +230,43 @@ class TraceCapture:
     """Context manager around ``torch.profiler``: on exit the timeline (the
     host's ops and, with a card, its kernels) is written to
     ``logdir/trace_<ms>.json`` (``path``), viewable in Perfetto or
-    ``chrome://tracing``."""
+    ``chrome://tracing``, with the program's spans (``tracing``, recorded
+    while it is active) on the profiler's clock: category
+    ``program_span``, device and self ms, ids and counts in ``args``."""
 
     def __init__(self, logdir: Path | str):
         self.logdir = Path(logdir)
         self.path: Path | None = None
         self._profiler = None
+        self._spans: list = []
 
     def __enter__(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._profiler = torch.profiler.profile(activities=activities)
+        tracing.on(self._spans)
         self._profiler.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self._profiler.__exit__(*exc)
+        try:
+            self._profiler.__exit__(*exc)
+            tracing.collect()
+        finally:
+            tracing.off(self._spans)
         self.logdir.mkdir(parents=True, exist_ok=True)
         self.path = self.logdir / f"trace_{int(time.time() * 1000)}.json"
         self._profiler.export_chrome_trace(str(self.path))
+        trace = json.loads(self.path.read_text())
+        base_ns = trace.get("baseTimeNanoseconds", 0)
+        pid = os.getpid()
+        trace["traceEvents"].extend(
+            {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+             "tid": s.thread, "ts": (s.start_ns - base_ns) / 1e3,
+             "dur": (s.end_ns - s.start_ns) / 1e3,
+             "args": {"id": s.id, "parent": s.parent, "request": s.request,
+                      "device_ms": s.device_ms, "self_ms": s.self_ms,
+                      **s.counts}}
+            for s in self._spans)
+        self.path.write_text(json.dumps(trace))

@@ -9,6 +9,11 @@ with ``remat``, as the JAX package's ``jax.checkpoint`` of the loss for
 ``tpu.remat``; the draws are made before it, so the recomputation sees the
 same ones) -> gradients -> the raw global gradient norm
 -> clip, AdamW and EMA -> the non-finite guard. PyTorch runs it eagerly.
+Traced (``tracing``), a chunk is the span ``train.chunk`` over one ``step``
+span a step over ``step.tokenize``, ``step.draws``, ``step.forward``,
+``step.backward`` and ``step.update``, and no deeper: a span costs the
+host a few event records, and the step's host barely keeps ahead of the
+card, so the model's products are traced in codec calls only.
 The single step decides the guard on the host and updates the state in
 place only when it passes; the chunk decides it on the device for each of
 its K steps, so the K steps run without a host synchronisation.
@@ -39,6 +44,7 @@ from collections.abc import Callable
 
 import torch
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.training.objectives import Objective
 from meanflow_audio_codec_torch.training.optim import (
     TrainState,
@@ -63,24 +69,42 @@ def _check_devices(state: TrainState, **tensors) -> None:
                              f"state on {state.device}")
 
 
-def _loss_and_update(objective, tokenizer, flatten, remat, state, batch,
-                     generator, given):
-    """(metrics, update) of one step on ``batch``; nothing is written."""
-    x = batch
-    with torch.no_grad():
+def _step(objective, tokenizer, flatten, remat, state, batch, generator,
+          given, skip_nonfinite, guard_on_host) -> dict:
+    """One step on ``batch``, committed to ``state``; returns its metrics.
+
+    With ``skip_nonfinite`` the guard decides on the host
+    (``guard_on_host``: the update is committed only when it passes) or
+    on the device (``commit_where``)."""
+    with tracing.span("step.tokenize"), torch.no_grad():
+        x = batch
         if tokenizer is not None:
             x = tokenizer.tokenize(x)
         if flatten and x.ndim > 2:
             x = x.reshape(x.shape[0], -1)
+    tracing.rows(x)
     (loss, aux), grads = objective.compute_loss(
         state, generator, x, remat=remat, has_aux=True, **given)
-    # averaged over the data ranks before the norm, the clip and AdamW
-    grads = state.reduce_gradients(grads)
-    grad_norm = global_norm(grads)
-    update = state.apply_gradients(grads, grad_norm)
-    metrics = state.mean_over_data({"loss": loss, **aux})
-    return {"loss": metrics.pop("loss"), "grad_norm": grad_norm,
-            **metrics}, update
+    with tracing.span("step.update"):
+        # averaged over the data ranks before the norm, the clip and AdamW
+        grads = state.reduce_gradients(grads)
+        grad_norm = global_norm(grads)
+        update = state.apply_gradients(grads, grad_norm)
+        metrics = state.mean_over_data({"loss": loss, **aux})
+        metrics = {"loss": metrics.pop("loss"), "grad_norm": grad_norm,
+                   **metrics}
+        if not skip_nonfinite:
+            state.commit(update)
+            return metrics
+        ok = state.agree(_finite(metrics["loss"], grad_norm, update))
+        if guard_on_host:
+            ok = bool(ok)
+            if ok:
+                state.commit(update)
+        else:
+            state.commit_where(update, ok)
+        metrics["update_ok"] = ok
+    return metrics
 
 
 def make_train_step(objective: Objective, tokenizer=None,
@@ -103,16 +127,10 @@ def make_train_step(objective: Objective, tokenizer=None,
     def step(state: TrainState, batch: torch.Tensor,
              generator: torch.Generator | None = None, **given):
         _check_devices(state, batch=batch, **given)
-        metrics, update = _loss_and_update(objective, tokenizer, flatten,
-                                           remat, state, batch, generator,
-                                           given)
-        ok = True
-        if skip_nonfinite:
-            ok = bool(state.agree(_finite(metrics["loss"],
-                                          metrics["grad_norm"], update)))
-            metrics["update_ok"] = ok
-        if ok:
-            state.commit(update)
+        with tracing.root("train.chunk", state.device, depth=2), \
+                tracing.span("step", 0):
+            metrics = _step(objective, tokenizer, flatten, remat, state,
+                            batch, generator, given, skip_nonfinite, True)
         return state, metrics
 
     return step
@@ -142,22 +160,17 @@ def make_multi_step(objective: Objective, num_steps: int,
             raise ValueError(f"expected {num_steps} batches, got "
                              f"{batches.shape[0]}")
         series = []
-        for i in range(num_steps):
-            given = {name: d[i] for name, d in
-                     (("noise", noise), ("t", t), ("r", r)) if d is not None}
-            metrics, update = _loss_and_update(
-                objective, tokenizer, flatten, remat, state, batches[i],
-                generator, given)
-            if skip_nonfinite:
-                ok = state.agree(_finite(metrics["loss"],
-                                         metrics["grad_norm"], update))
-                state.commit_where(update, ok)
-                metrics["update_ok"] = ok
-            else:
-                state.commit(update)
-            series.append(metrics)
-        return state, {name: torch.stack([m[name] for m in series])
-                       for name in series[0]}
+        with tracing.root("train.chunk", state.device, depth=2):
+            for i in range(num_steps):
+                given = {name: d[i] for name, d in
+                         (("noise", noise), ("t", t), ("r", r))
+                         if d is not None}
+                with tracing.span("step", i):
+                    series.append(_step(objective, tokenizer, flatten, remat,
+                                        state, batches[i], generator, given,
+                                        skip_nonfinite, False))
+            return state, {name: torch.stack([m[name] for m in series])
+                           for name in series[0]}
 
     return run
 

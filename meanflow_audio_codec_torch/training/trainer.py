@@ -38,6 +38,12 @@ that the data axis does not divide runs unsharded on every rank, as JAX's
 does. Only rank 0 writes the workdir's files (metadata, config, logs,
 samples, checkpoints from full tensors, summary); the other ranks return a
 summary of their final loss.
+
+A chunk of the hot loop is the spans ``pool.sample``, ``train.chunk``,
+``pool.refresh`` and ``readback`` (``tracing``), recorded while
+``ProfilingTrainer`` times it: the logged ``step_time`` is the chunk's
+device time over its steps, and the summary's ``phase_ms`` each step
+phase's device ms a step.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.configs import CodecConfig
 from meanflow_audio_codec_torch.data.audio import (
     build_audio_pipeline,
@@ -436,8 +443,9 @@ def train_flow(config: CodecConfig, resume: bool = False,
                     raws.append(np.asarray(next(data_iter)))
                 stacked = to_device(np.stack(raws), dim=1)  # [K, B/n, ...]
                 state, series = chunk_fn(k)(state, stacked, generator)
-            series = {name: value.cpu().numpy()
-                      for name, value in series.items()}
+            with tracing.root("readback"):
+                series = {name: value.cpu().numpy()
+                          for name, value in series.items()}
         first_chunk = False
         # NB: the adaptive weighted-L2 loss is ~1 by construction (w ~
         # 1/||d||^2); 'mse' is the informative convergence signal.
