@@ -57,7 +57,11 @@ and prints no result line):
      launches are counted);
   4. the served path: ``AudioCodec.roundtrip`` at the full width of
      configs/frontier_v2.json (bf16 compute, seeded random weights) on four
-     32768-sample stereo clips and one 10 s 44.1 kHz stereo clip;
+     32768-sample stereo clips and one 10 s 44.1 kHz stereo clip, each
+     decode launching each stage kernel once a block (24 a decode); the
+     three stage kernels were timed at the benchmark's serve shape (27,536
+     rows x 64 x 256, GELU+GRN at 512, bf16) in phase 3 beside their plain
+     versions, ``F.layer_norm`` for the LN and the byte bound;
   5. the train path (the config's remat honoured, as in every train phase
      below): the iMF ``make_train_step`` at frontier-v2 width with
      ``fused_stage`` on, bf16 compute, on 16 synthetic stereo clips of 32768
@@ -221,8 +225,11 @@ and prints no result line):
      JAX package's, or a launch count other than one MDCT and one IMDCT a
      codec call, 72 int8 products a quantized decoder call (in the codec
      geometry and the A/B probe's int8 calls, and as
-     ``aten::_int_mm`` calls in ``probe_hlo``'s profile), all three stage
-     kernels on the fused row and none on the unfused one;
+     ``aten::_int_mm`` calls in ``probe_hlo``'s profile), each stage
+     kernel once a block of a decoder call (every forward on the card that
+     nothing differentiates takes them: ``ops.stage.inference_on_card``),
+     all three on the fused MFU row and on the unfused one only once a
+     block of each iMF boundary forward;
   13. float32 checks (phase 6) plus each objective's loss and gradients on
      the card against the CPU at one clip (relative L2 <= 1e-5), then
      profiles of one round trip and one bf16 train step with
@@ -263,8 +270,8 @@ and prints no result line):
      <= 1e-5); ``train_step`` through ``compute_loss`` for 2 float32 steps
      against ``make_train_step``'s with the same draws (losses, parameters
      and first moments within relative L2 1e-5), with ``fused_stage`` off
-     and on (every stage kernel launched on the fused path, none on the
-     other); ``stage_fusable`` against the wrappers' launches at 4
+     and on (every stage kernel launched on the fused path, on the other
+     only once a block of each step's boundary forward); ``stage_fusable`` against the wrappers' launches at 4
      geometries in bf16, f32 and f16; ``training/profiling.device_time``
      of the bf16 codec's round trip on 4 clips x 32768 beside ``time_ms``
      of the same call, 12 MDCT and 12 IMDCT launches;
@@ -330,7 +337,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from meanflow_audio_codec_torch import serialization, weights
+from meanflow_audio_codec_torch import serialization, tracing, weights
 from meanflow_audio_codec_torch import train as train_cli
 from meanflow_audio_codec_torch.codec import AudioCodec
 from meanflow_audio_codec_torch.configs import (
@@ -438,6 +445,13 @@ PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak, the same data sheet
 #: Dense and 5 convs a stage) and the int8 decode's bound against bf16's
 #: (the JAX package's tests/test_quant.py bound)
 INT8_PRODUCTS_PER_DECODE = 72
+#: frontier-v2's decoder stages: a forward on the card that nothing
+#: differentiates launches each stage kernel once a stage
+#: (``ops.stage.inference_on_card``), so each once a block of a decoder
+#: call or of the iMF loss's boundary forward
+BLOCKS = 8
+#: one round trip of the benchmark's serve cell: 16 clips x 10 s stereo
+SERVE_ROWS = 16 * num_frames_for_length(10 * 44100, 512, 256)
 QUANT_REL_L2 = 0.05
 SIMPLE_STEPS = 4  # train_epoch's steps per objective in the simple trainer
 #: the proj trials' steps, cut from the scripts' 2000 (mnist_trial) and
@@ -521,6 +535,15 @@ def read_launches() -> dict:
     return {"mdct_cuda": mdct_cuda_mod.launches,
             "imdct_cuda": imdct_cuda_mod.launches, **stage_cuda.launches,
             "gelu_grn_variants": dict(stage_cuda.gelu_grn_variants)}
+
+
+def stage_launched(launches: dict, forwards: int, where: str) -> None:
+    """Each stage kernel launched once a block of ``forwards`` undifferentiated
+    frontier-v2 forwards, and nothing else, on ``where``."""
+    got = [launches[name] for name in stage_cuda.launches]
+    if got != [BLOCKS * forwards] * len(got):
+        raise AssertionError(f"{where}: stage kernel launches {got}, "
+                             f"expected {BLOCKS * forwards} each")
 
 
 def _timed_ms(fn, calls: int) -> float:
@@ -815,10 +838,24 @@ def roundtrip_path(device: torch.device, card: str):
               f"{max(total) / 1e3 / seconds:.6f} ({1 / rtf:.1f}x real time, "
               f"{seconds:.3f} s of audio, n={REPEATS})", flush=True)
     launches = read_launches()
-    print(f"round-trip path launches: {launches}", flush=True)
+    print(f"round-trip path launches: {launches} ({3 * BLOCKS} stage "
+          "kernels a decode)", flush=True)
     for name in ("mdct_cuda", "imdct_cuda"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the round trip")
+    stage_launched(launches, REPEATS * len(requests), "the round trip")
+    tracing.on()  # one traced decode: its flow.forward counts the segments
+    try:
+        codec.decode(latents, generator=gen, gains=gains)
+    finally:
+        tracing.off()
+    fused = [s.counts.get("stage_fused") for s in tracing.collect()
+             if s.name == "flow.forward"]
+    print(f"a traced decode: stage_fused {fused} on its flow.forward",
+          flush=True)
+    if fused != [3 * BLOCKS]:
+        raise AssertionError(f"a decode's flow.forward counted {fused} fused "
+                             f"segments, expected [{3 * BLOCKS}]")
     return launches, codec, requests
 
 
@@ -1022,7 +1059,9 @@ def check_stage_kernels(device: torch.device) -> dict:
     in f32 at the train shape; times of the bf16 train shape, the dtype of
     the train path, and of the bf16 conv_mfu shape (keys ending
     ``_conv_mfu``), where the cluster and the two-pass kernels are also
-    timed in turns (``grn_in_turns_conv_mfu``)."""
+    timed in turns (``grn_in_turns_conv_mfu``); and at the round trip's
+    serve shape (27,536 rows, LN at C = 256, GELU+GRN at 512) in bf16,
+    checked and timed (keys ending ``_serve``)."""
     gen = torch.Generator(device=device).manual_seed(4)
     results = {name: {"max_abs_err": 0.0} for name in stage_cuda.launches}
     n_train = TRAIN_CLIPS * num_frames_for_length(CLIP_LEN, 512, 256)
@@ -1107,6 +1146,36 @@ def check_stage_kernels(device: torch.device) -> dict:
                       f"them with the JVP, and 8 backwards per op", flush=True)
     if variants_checked != set(stage_cuda.gelu_grn_variants):
         raise AssertionError(f"GELU+GRN kernels checked: {variants_checked}")
+    # the serve shape: a round trip's decode of 16 clips x 10 s, where each
+    # decoder stage runs the three kernels: each checked against the plain
+    # version, then timed (keys ending ``_serve``)
+    x, s, b = _stage_inputs(SERVE_ROWS, 64, 256, torch.bfloat16, gen, device)
+    x2 = _stage_inputs(SERVE_ROWS, 64, 512, torch.bfloat16, gen, device)[0]
+    gamma = 0.5 * torch.randn(512, generator=gen, device=device)
+    beta = 0.1 * torch.randn(512, generator=gen, device=device)
+    tol = STAGE_BF16
+    for name, (kernel, plain, library, _, args) in _stage_cases(
+            x, s, b, x2, gamma, beta).items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        stat_err = max((g - r).abs().max().item()
+                       for g, r in zip(got[1:], ref[1:]))
+        kind = (f" ({stage_cuda.gelu_grn_variant(x2)})"
+                if name == "gelu_grn_cuda" else "")
+        print(f"{name}{kind} serve {tuple(args[0].shape)} torch.bfloat16: "
+              f"y max_abs_err {err:.3e}, stats {stat_err:.3e} "
+              f"(y {tol}, stats {STAGE_F32})", flush=True)
+        torch.testing.assert_close(got[0], ref[0], **tol)
+        for g, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(g, r, **STAGE_F32)
+        res = results[name]
+        res["max_abs_err"] = max(res["max_abs_err"], err, stat_err)
+        del got, ref
+        _time_stage_kernel(res, name, kernel, plain, library, args[0],
+                           "_serve")
+    del x, s, b, x2
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1234,8 +1303,8 @@ def train_path(device: torch.device, card: str, fused: bool = True,
     for name in ("mdct_cuda", *(stage_kernels if fused else ())):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the train path")
-    if not fused and any(launches[name] for name in stage_kernels):
-        raise AssertionError("a stage kernel ran with fused_stage off")
+    if not fused:  # the iMF loss's boundary forward, under no_grad
+        stage_launched(launches, steps, "the train path, fused_stage off")
     if fused and launches["gelu_grn_variants"]["single_read"] == 0:
         raise AssertionError("the single-read GELU+GRN kernel was not "
                              "launched on the train path")
@@ -2345,7 +2414,8 @@ def corpus_phase(device: torch.device, card: str, scratch: Path) -> dict:
     for label, counts in paths.items():
         stage_counts = {k: counts[k] for k in stage_cuda.launches}
         print(f"{label}: stage kernel launches {stage_counts} (fused_stage "
-              "is off in the config: 0 expected)", flush=True)
+              "is off in the config: the boundary forwards and decodes "
+              "alone)", flush=True)
     return paths
 
 
@@ -3394,6 +3464,10 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
     none = dict(mdct_cuda=0, imdct_cuda=0, ln_film_cuda=0, ln_norm_cuda=0,
                 gelu_grn_cuda=0)
 
+    def decodes(n: int) -> dict:
+        """Each stage kernel once a block of ``n`` decoder calls."""
+        return {name: BLOCKS * n for name in stage_cuda.launches}
+
     def counted(label: str, module, *argv: str) -> list[dict]:
         zero_launches()
         quant.int8_products = 0
@@ -3419,7 +3493,8 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
         (row,) = counted(label, benchmark_codec_geometry, "--configs",
                          "ch256_s8_lift32", *extra)
         _expect(label, paths[label], **dict(none, mdct_cuda=calls,
-                                            imdct_cuda=calls))
+                                            imdct_cuda=calls,
+                                            **decodes(calls)))
         want = INT8_PRODUCTS_PER_DECODE * calls if extra else 0
         if paths[label]["int8_products"] != want:
             raise AssertionError(f"{label}: {paths[label]['int8_products']} "
@@ -3428,7 +3503,8 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
                                     1):
             raise AssertionError(f"{label}: params_m {row['params_m']}")
 
-    # the train step's MFU: the fused row through the stage kernels only
+    # the train step's MFU: the fused row through the stage kernels, the
+    # unfused one in its boundary forwards alone (one launch a block each)
     for config in ("ch512_s8_lift64_bn1024_b2048_dots",
                    "ch512_s8_lift64_bn1024_b2048_dots_fused"):
         label = ("timing_conv_mfu_fused" if config.endswith("_fused")
@@ -3438,8 +3514,9 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
         stages = [launches[k] for k in ("ln_film_cuda", "ln_norm_cuda",
                                         "gelu_grn_cuda")]
         if (launches["mdct_cuda"] or launches["imdct_cuda"]
-                or (min(stages) == 0 if label.endswith("fused")
-                    else max(stages) != 0)):
+                or min(stages) == 0
+                or (not label.endswith("fused")
+                    and (len(set(stages)) != 1 or stages[0] % BLOCKS))):
             raise AssertionError(f"{label}: launches {launches}")
         # GELU+GRN at 1024 channels: every launch the cluster kernel's
         if launches["gelu_grn_variants"]["cluster"] != launches[
@@ -3455,7 +3532,8 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
     counted("timing_streaming", benchmark_streaming, "--configs",
             "light_ch256", "--chunk-seconds", "0.1", "--pushes", str(pushes))
     _expect("timing_streaming", paths["timing_streaming"], **dict(
-        none, mdct_cuda=3 + pushes, imdct_cuda=3 + pushes))
+        none, mdct_cuda=3 + pushes, imdct_cuda=3 + pushes,
+        **decodes(3 + pushes)))
 
     # the samplers and objectives (MLP flows: no kernel on their path)
     for module in (benchmark_sampler, benchmark_train_objectives,
@@ -3470,10 +3548,11 @@ def timing_tools_phase(card: str, scratch: Path) -> dict:
     side_calls = 1 + rounds * probe_codec_ab.CALLS  # a warm-up, the rounds
     _expect("timing_probe_codec_ab", paths["timing_probe_codec_ab"], **dict(
         none, mdct_cuda=2 * side_calls, imdct_cuda=2 * side_calls,
-        int8_products=INT8_PRODUCTS_PER_DECODE * side_calls))
+        int8_products=INT8_PRODUCTS_PER_DECODE * side_calls,
+        **decodes(2 * side_calls)))
     (hlo,) = counted("timing_probe_hlo", probe_hlo)  # a warm-up call, then
     _expect("timing_probe_hlo", paths["timing_probe_hlo"], **dict(
-        none, mdct_cuda=2, imdct_cuda=2))             # the profiled one
+        none, mdct_cuda=2, imdct_cuda=2, **decodes(2)))  # the profiled one
     # the profiler's count of int8 GEMM kernels is printed, not held: late
     # in this process torch.profiler missed some library kernels (a cuDNN
     # conv, a cuBLAS GEMM) on an H100 host, where the CPU-side op count
@@ -4096,8 +4175,9 @@ def _interface_train(device: torch.device, card: str, fused: bool,
     if fused and not all(launches[name] for name in stage_kernels):
         raise AssertionError("a stage kernel was not launched by the fused "
                              f"compute_loss: {launches}")
-    if not fused and any(launches[name] for name in stage_kernels):
-        raise AssertionError("a stage kernel ran with fused_stage off")
+    if not fused:  # each step's boundary forward, under no_grad
+        stage_launched(launches, INTERFACE_STEPS,
+                       "compute_loss, fused_stage off")
     del state, twin, step
     torch.cuda.empty_cache()
     return launches

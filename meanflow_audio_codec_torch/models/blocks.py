@@ -11,10 +11,14 @@ so every flatten and reshape reads features in the same order as the Flax
 model. A 1x1 convolution on that layout is a :class:`Dense` over the last
 axis; :class:`Conv2d` wraps the spatial convolutions.
 
-The ``fused_stage`` branches (``FiLM(fuse_norm=True)``, GRN with
-``fused_gelu=True``, ``ConvNeXtBlock(fused_stage=True)``) run the stage's
-normalisation segments through the fused ops of ``ops/stage.py`` (hand-written
-CUDA kernels on the card) with the same parameters as the plain branches.
+The fused branches (:meth:`FiLM.norm_modulate`,
+:meth:`GlobalResponseNormalization.gelu_grn`, the LN of
+:class:`ConvNeXtBlock`) run the stage's normalisation segments through the
+fused ops of ``ops/stage.py`` (hand-written CUDA kernels on the card) with
+the same parameters as the plain branches. The ConvNeXt stage takes them on
+the card whenever nothing differentiates the forward
+(``ops.stage.inference_on_card``), and everywhere with ``fused_stage=True``;
+``FiLM(fuse_norm=True)`` and GRN with ``fused_gelu=True`` always take them.
 ``quantized=True`` on :class:`Dense`, :class:`Conv2d` and
 :class:`ConvNeXtBlock` serves their products in dynamic W8A8 int8
 (``ops/quant.py``, the JAX package's ``quant_injection``), with the same
@@ -37,6 +41,7 @@ from meanflow_audio_codec_torch.ops.stage import (
     fused_gelu_grn,
     fused_ln_film,
     fused_ln_norm,
+    inference_on_card,
 )
 
 
@@ -134,9 +139,11 @@ class GlobalResponseNormalization(nn.Module):
 
     The 1e-12 sits inside the sqrt (the JAX package's NaN guard for channels
     that die to zero); gamma and beta are cast to the compute dtype before
-    the product. ``fused_gelu=True`` takes the PRE-activation input and runs
+    the product. :meth:`gelu_grn` takes the PRE-activation input and runs
     tanh-GELU + GRN as one fused op (float32 arithmetic, result in the input
-    dtype).
+    dtype); ``fused_gelu=True`` makes it the module's call. The ConvNeXt
+    block calls it on the card whenever nothing differentiates the forward,
+    and ``fused_stage`` decides only the differentiated calls.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-6,
@@ -149,14 +156,18 @@ class GlobalResponseNormalization(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused_gelu:
-            return fused_gelu_grn(_as_rows(x), self.gamma,
-                                  self.beta).reshape(x.shape)
+            return self.gelu_grn(x)
         spatial = tuple(range(1, x.ndim - 1))
         gx = torch.sqrt(x.float().square().sum(dim=spatial, keepdim=True)
                         + 1e-12)
         nx = gx / (gx.mean(dim=-1, keepdim=True) + self.epsilon)
         return (x * (self.gamma.to(x.dtype) + nx.to(x.dtype))
                 + self.beta.to(x.dtype))
+
+    def gelu_grn(self, x: torch.Tensor) -> torch.Tensor:
+        """tanh-GELU + GRN of the pre-activation ``x`` as one fused op."""
+        return fused_gelu_grn(_as_rows(x), self.gamma,
+                              self.beta).reshape(x.shape)
 
 
 class ConvNeXtBlock(nn.Module):
@@ -169,8 +180,11 @@ class ConvNeXtBlock(nn.Module):
     scaled by 1 / (1 - p): ``keep`` (``[B]``, 0 or 1) gives the mask, or it
     is drawn by ``torch.bernoulli`` from ``generator`` on the input's device
     (the JAX block draws it from its ``"drop_path"`` rng).
-    ``fused_stage=True`` runs the LN after the 3x3 conv and the GELU + GRN
-    through the fused ops.
+    The LN after the 3x3 conv and the GELU + GRN run through the fused ops
+    on the card whenever nothing differentiates the forward
+    (``ops.stage.inference_on_card``: no autograd recording, no dual level
+    open, float32 or bfloat16 activations); ``fused_stage=True`` runs them
+    so on the differentiated paths too.
     ``remat_segments=True`` recomputes the LN and the GELU + GRN in the
     backward pass and keeps the products' outputs (``models/remat.py``).
     ``quantized=True`` serves the three convs in W8A8 int8.
@@ -188,21 +202,21 @@ class ConvNeXtBlock(nn.Module):
         q = dict(compute_dtype=compute_dtype, quantized=quantized)
         self.conv = Conv2d(dim, dim, 3, **q)
         self.expand = Dense(dim, 2 * dim, **q)
-        self.grn = (GlobalResponseNormalization(2 * dim, fused_gelu=fused_stage)
-                    if use_grn else None)
+        self.grn = GlobalResponseNormalization(2 * dim) if use_grn else None
         self.contract = Dense(2 * dim, dim, **q)
         self.layer_scale = (
             nn.Parameter(torch.full((dim,), layer_scale_init_value))
             if layer_scale_init_value > 0 else None)
 
     def _norm(self, h: torch.Tensor) -> torch.Tensor:
-        if self.fused_stage:
+        if self.fused_stage or inference_on_card(h):
             return fused_ln_norm(_as_rows(h)).reshape(h.shape)
         return adaln_norm(h)
 
     def _activation(self, h: torch.Tensor) -> torch.Tensor:
-        if self.fused_stage and self.grn is not None:
-            return self.grn(h)  # the fused GRN applies the GELU itself
+        if self.grn is not None and (self.fused_stage
+                                     or inference_on_card(h)):
+            return self.grn.gelu_grn(h)
         h = gelu(h)
         return self.grn(h) if self.grn is not None else h
 
@@ -230,8 +244,11 @@ class FiLM(nn.Module):
     """Feature-wise ``(1 + scale) * x + shift`` over the channel axis, with
     scale and shift projected from the condition vector.
 
-    ``fuse_norm=True`` takes the PRE-norm input and runs the adaLN-norm and
-    the modulation as one fused op.
+    :meth:`norm_modulate` takes the PRE-norm input and runs the adaLN-norm
+    and the modulation as one fused op; ``fuse_norm=True`` makes it the
+    module's call. The ConvNeXt stage calls it on the card whenever nothing
+    differentiates the forward, and ``fused_stage`` decides only the
+    differentiated calls.
     """
 
     def __init__(self, condition_dimension: int, channels: int,
@@ -243,11 +260,17 @@ class FiLM(nn.Module):
                           compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
-        scale, shift = self.proj(condition).chunk(2, dim=-1)
         if self.fuse_norm:
-            return fused_ln_film(_as_rows(x), scale, shift).reshape(x.shape)
+            return self.norm_modulate(x, condition)
+        scale, shift = self.proj(condition).chunk(2, dim=-1)
         expand = (slice(None),) + (None,) * (x.ndim - 2)
         return (1.0 + scale[expand]) * x + shift[expand]
+
+    def norm_modulate(self, x: torch.Tensor,
+                      condition: torch.Tensor) -> torch.Tensor:
+        """adaLN-norm + FiLM of the pre-norm ``x`` as one fused op."""
+        scale, shift = self.proj(condition).chunk(2, dim=-1)
+        return fused_ln_film(_as_rows(x), scale, shift).reshape(x.shape)
 
 
 class MLP(nn.Module):

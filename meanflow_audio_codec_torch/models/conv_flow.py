@@ -31,6 +31,7 @@ from meanflow_audio_codec_torch.models.remat import (
     remat,
 )
 from meanflow_audio_codec_torch.ops.embeddings import dual_time_embedding
+from meanflow_audio_codec_torch.ops.stage import inference_on_card
 
 
 class ConvStage(nn.Module):
@@ -40,15 +41,18 @@ class ConvStage(nn.Module):
     ``spatial`` is the grid side (default isqrt(noise_dimension));
     ``lift_channels`` c0 factorises the lift into a thin [S, S, c0] Dense
     output and a 1x1 conv c0 -> C (default: Dense straight to C channels).
-    ``fused_stage`` runs the LN + FiLM and the block's normalisation segments
-    through the fused stage ops (``ops/stage.py``). ``remat_segments``
-    recomputes the LN + FiLM and the block's elementwise segments in the
-    backward pass and keeps the products' outputs (``dots_saveable``; the
-    FiLM's small condition projection, [B, 2C], is recomputed with its
-    segment). ``quantized`` serves the four Dense layers and the five
-    convolutions (the 1x1 lift, the block's three, the 1x1 back) in W8A8
-    int8; FiLM's projection stays in the compute dtype, as in the JAX
-    package.
+    The LN + FiLM and the block's normalisation segments run through the
+    fused stage ops (``ops/stage.py``, the hand-written kernels) on the card
+    whenever nothing differentiates a float32 or bfloat16 forward
+    (``ops.stage.inference_on_card``; another dtype keeps the plain path);
+    ``fused_stage`` runs them so everywhere and decides only the
+    differentiated paths. ``remat_segments`` recomputes the LN + FiLM and
+    the block's elementwise segments in the backward pass and keeps the
+    products' outputs (``dots_saveable``; the FiLM's small condition
+    projection, [B, 2C], is recomputed with its segment). ``quantized``
+    serves the four Dense layers and the five convolutions (the 1x1 lift,
+    the block's three, the 1x1 back) in W8A8 int8; FiLM's projection stays
+    in the compute dtype, as in the JAX package.
     """
 
     def __init__(self, noise_dimension: int, condition_dimension: int,
@@ -76,8 +80,7 @@ class ConvStage(nn.Module):
         self.lift_conv = (Dense(lift_channels, channels, **q)
                           if lift_channels is not None else None)
         self.fused_stage = fused_stage
-        self.film = FiLM(condition_dimension, channels, fuse_norm=fused_stage,
-                         **dt)
+        self.film = FiLM(condition_dimension, channels, **dt)
         self.block = ConvNeXtBlock(channels, use_grn=use_grn,
                                    fused_stage=fused_stage,
                                    remat_segments=remat_segments, **q)
@@ -103,9 +106,9 @@ class ConvStage(nn.Module):
 
     def _norm_film(self, h: torch.Tensor,
                    condition: torch.Tensor) -> torch.Tensor:
-        if not self.fused_stage:  # the fused FiLM normalises itself
-            h = adaln_norm(h)
-        return self.film(h, condition)
+        if self.fused_stage or inference_on_card(h):
+            return self.film.norm_modulate(h, condition)
+        return self.film(adaln_norm(h), condition)
 
 
 class ConvEncoder(nn.Module):
@@ -148,9 +151,11 @@ class ConditionalConvFlow(nn.Module):
 
     ``forward(x, time, latents)`` with ``time`` the ``[B, 2]`` (t, h) pair;
     ``latents=None`` equals zero latents (``latent_proj`` has no bias).
-    ``fused_stage`` goes to every decoder stage; the encoder has no fused
-    path. ``remat`` recomputes each decoder stage in the backward pass, as
-    the JAX package's ``nn.remat(ConvStage, policy=...)``: under
+    ``fused_stage`` goes to every decoder stage (whose segments take the
+    fused ops on the card whenever nothing differentiates the forward,
+    :class:`ConvStage`); the encoder has no fused path. ``remat``
+    recomputes each decoder stage in the backward pass, as the JAX
+    package's ``nn.remat(ConvStage, policy=...)``: under
     ``dots_saveable`` / ``checkpoint_dots`` each stage checkpoints its
     elementwise segments and keeps the products' outputs, under policy None
     / ``nothing_saveable`` the stage is recomputed whole

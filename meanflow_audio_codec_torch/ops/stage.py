@@ -33,16 +33,23 @@ keep none of its float32 intermediates; inside it, the rule is recorded like
 any torch op, so a gradient reaches the inputs and parameters through the
 tangent and through the statistics (grad-of-JVP, JAX's ``custom_jvp`` rule
 differentiated).
+
+:func:`inference_on_card` is the rule by which the models run these ops
+where ``fused_stage`` is off: a forward on the card that nothing
+differentiates. Each call of an op adds 1 to the count ``stage_fused`` of
+the innermost open span (``tracing``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from meanflow_audio_codec_torch import tracing
 from meanflow_audio_codec_torch.ops import stage_cuda
 from meanflow_audio_codec_torch.ops.stage_ref import (
     _GRN_MEAN_EPS,
@@ -70,6 +77,19 @@ def differentiable_tangents(enabled: bool = True):
 def tangents_differentiable() -> bool:
     """Whether :func:`differentiable_tangents` is in force."""
     return _TANGENT_GRAD.get()
+
+
+def inference_on_card(x: torch.Tensor) -> bool:
+    """Whether a stage segment on the channels-last ``x`` [B, ..., C] takes
+    the fused ops whatever ``fused_stage`` says: ``x`` is a CUDA tensor the
+    kernels take (float32 or bfloat16, ``stage_cuda.takes``), autograd is
+    not recording and no forward-mode dual level is open. Nothing then
+    differentiates the segment, so the kernel's one forward pass is all it
+    needs; a float16 or float64 forward keeps the plain path."""
+    return (x.is_cuda and not torch.is_grad_enabled()
+            and fwAD._current_level < 0
+            and stage_cuda.takes(math.prod(x.shape[1:-1]), x.shape[-1],
+                                 x.dtype))
 
 
 def _vjp(ctx, ref, grads):
@@ -178,6 +198,8 @@ def _gelu_grn_tangent(primals, tangents, stats):
 def _apply(stats_fn, tangent_rule, *inputs):
     """``stats_fn`` on the primals of ``inputs``; a dual output whose tangent
     is ``tangent_rule``'s when any input carries a tangent."""
+    if tracing.ON:
+        tracing.count("stage_fused", 1)
     unpacked = [fwAD.unpack_dual(t) for t in inputs]
     primals = [u.primal for u in unpacked]
     tangents = [u.tangent for u in unpacked]

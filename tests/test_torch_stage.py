@@ -15,7 +15,16 @@ rtol / atol 1e-2: both sides compute in f32 and round once to bf16
 (2**-7 relative), and a last-bit f32 difference can flip that rounding. The
 modules take the tolerances of tests/test_torch_model.py (f32 rtol 1e-4 /
 atol 1e-5; bf16 relative L2 <= 2e-2).
+
+The rule by which an unfused stage takes the fused ops
+(``stage.inference_on_card``: a CUDA tensor, no autograd recording, no dual
+level) never holds here, so an unfused model runs its plain path bit for
+bit; the branch points, and the iMF loss's boundary forward that the rule
+sends through the fused ops on the card, are driven with the rule's CPU
+stand-in.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +36,7 @@ import torch.autograd.forward_ad as fwAD
 from meanflow_audio_codec_tpu.models import blocks as jblocks
 from meanflow_audio_codec_tpu.models import conv_flow as jconv
 from meanflow_audio_codec_tpu.ops import stage_pallas as jstage
-from meanflow_audio_codec_torch import weights
+from meanflow_audio_codec_torch import tracing, weights
 from meanflow_audio_codec_torch.models import blocks, conv_flow
 from meanflow_audio_codec_torch.ops import stage, stage_cuda
 
@@ -433,6 +442,178 @@ def test_fused_and_plain_trees_convert_with_one_mapping():
     assert set(fused_sd) == set(tmodel.state_dict())
     for key, value in fused_sd.items():
         assert value.shape == plain_sd[key].shape, key
+
+
+class _OnCard:
+    """Stands in for a channels-last CUDA tensor: the rule reads its
+    ``is_cuda``, ``shape`` and ``dtype``."""
+
+    is_cuda = True
+    shape = (2, 8, 8, 16)
+
+    def __init__(self, dtype=torch.bfloat16):
+        self.dtype = dtype
+
+
+@pytest.mark.parametrize("case", ["cpu_tensor", "autograd_records",
+                                  "dual_level", "float16", "float64",
+                                  "nothing_differentiates",
+                                  "nothing_differentiates_f32"])
+def test_inference_on_card_needs_the_card_no_tape_and_no_dual_level(case):
+    """A dtype the kernels do not take (``stage_cuda.takes``) keeps the
+    plain path too."""
+    dtype = {"float16": torch.float16, "float64": torch.float64,
+             "nothing_differentiates_f32": torch.float32}.get(
+                 case, torch.bfloat16)
+    x = torch.zeros(2, 3) if case == "cpu_tensor" else _OnCard(dtype)
+    dual = (fwAD.dual_level() if case == "dual_level"
+            else contextlib.nullcontext())
+    with torch.set_grad_enabled(case == "autograd_records"), dual:
+        assert stage.inference_on_card(x) == case.startswith(
+            "nothing_differentiates")
+
+
+def _traced_flow(model, *inputs):
+    """``model(*inputs)`` under a traced root; its output and its
+    ``flow.forward`` span."""
+    tracing.on()
+    try:
+        with tracing.root("codec.decode", torch.device("cpu")):
+            out = model(*inputs)
+    finally:
+        tracing.off()
+    (flow,) = [s for s in tracing.collect() if s.name == "flow.forward"]
+    return out, flow
+
+
+def _plain_flow(model, x, time, latents):
+    """The unfused flow's forward, each segment called directly: the
+    adaLN-norm before FiLM, the block's LN, GELU then GRN."""
+    from meanflow_audio_codec_torch.ops.embeddings import dual_time_embedding
+
+    dt = model.compute_dtype
+    cond = (dual_time_embedding(time, model.condition_dimension).to(dt)
+            + model.latent_proj(latents))
+    h = x.to(dt)
+    for st in model.stages:
+        b = x.shape[0]
+        g = blocks.gelu(st.bottleneck_in(h))
+        g = st.lift_conv(st.lift(g).reshape(b, st.spatial, st.spatial,
+                                            st.grid_channels))
+        g = st.film(blocks.adaln_norm(g), cond)
+        block = st.block
+        y = blocks.adaln_norm(block.conv(g))
+        y = block.grn(blocks.gelu(block.expand(y)))
+        y = block.contract(y) * block.layer_scale.to(dt)
+        g = blocks.gelu(st.bottleneck_out(st.unlift_conv(y + g).reshape(b, -1)))
+        h = st.out(g) / st.num_blocks + h
+    return h
+
+
+def test_a_fused_flow_counts_three_fused_segments_a_block():
+    _, _, tmodel = _flows(jnp.float32, torch.float32, fused=True)
+    inputs = [torch.from_numpy(a) for a in _flow_inputs()]
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            _, flow = _traced_flow(tmodel, *inputs)
+        assert flow.counts == {"stage_fused": 3 * FLOW["num_blocks"]}
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_an_unfused_flow_on_the_cpu_keeps_its_plain_path(grad):
+    _, _, tmodel = _flows(jnp.bfloat16, torch.bfloat16, fused=False)
+    inputs = [torch.from_numpy(a) for a in _flow_inputs()]
+    with torch.set_grad_enabled(grad):
+        got, flow = _traced_flow(tmodel, *inputs)
+        want = _plain_flow(tmodel, *inputs)
+    assert flow.counts == {}
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def _take_the_rule_on_the_cpu(monkeypatch):
+    """Drive the branch points with the rule's CPU stand-in: a CPU tensor
+    counts as the card's."""
+    def on_card(x):
+        return not torch.is_grad_enabled() and fwAD._current_level < 0
+
+    monkeypatch.setattr(conv_flow, "inference_on_card", on_card)
+    monkeypatch.setattr(blocks, "inference_on_card", on_card)
+
+
+def test_the_branch_points_take_the_fused_ops_where_the_rule_holds(
+        monkeypatch):
+    """The rule with a CPU tensor taken for the card's: under ``no_grad`` an
+    unfused flow runs the fused ops, as ``fused_stage`` does, bit for bit;
+    recorded or inside a dual level it keeps the plain path."""
+    _take_the_rule_on_the_cpu(monkeypatch)
+    _, _, fused = _flows(jnp.bfloat16, torch.bfloat16, fused=True)
+    _, _, plain = _flows(jnp.bfloat16, torch.bfloat16, fused=False)
+    inputs = [torch.from_numpy(a) for a in _flow_inputs()]
+    with torch.no_grad():
+        got, flow = _traced_flow(plain, *inputs)
+        assert flow.counts == {"stage_fused": 3 * FLOW["num_blocks"]}
+        assert torch.equal(got, fused(*inputs))
+        assert not torch.equal(got, _plain_flow(plain, *inputs))
+        with fwAD.dual_level():
+            assert torch.equal(plain(*inputs), _plain_flow(plain, *inputs))
+    assert torch.equal(plain(*inputs), _plain_flow(plain, *inputs))
+
+
+
+@pytest.mark.parametrize("weighted", [True, False],
+                         ids=["weighted_l2", "mse"])
+def test_imf_loss_with_a_fused_boundary_forward_keeps_its_precision(
+        monkeypatch, weighted):
+    """On the card the iMF loss's boundary forward (``v`` under ``no_grad``
+    outside the JVP's dual level, stop-gradient on, the configs' default)
+    takes the fused ops; the JVP's forward and the backward keep the plain
+    path. With the rule's CPU stand-in, over six draws of a bf16 model:
+    only the boundary forward is counted; the loss lies within a few bf16
+    roundings (2**-5 relative) of the plain path's; and the loss's ``mse``
+    and the gradient lie no further from the float32 model's than the
+    plain path's do (at most 1.1x: the mse summed over the draws, the
+    gradient's relative L2 gap on each)."""
+    from meanflow_audio_codec_torch.training.objectives import (
+        ImprovedMeanFlowObjective,
+    )
+
+    _, _, bf16 = _flows(jnp.bfloat16, torch.bfloat16, fused=False)
+    _, _, f32 = _flows(jnp.float32, torch.float32, fused=False)
+    x = torch.from_numpy(_flow_inputs()[0])
+    objective = ImprovedMeanFlowObjective(use_weighted_loss=weighted)
+
+    def loss_and_grad(model, draws):
+        model.zero_grad()
+        loss, aux = objective.loss(model, x, **draws)
+        loss.backward()
+        grad = torch.cat([p.grad.float().flatten()
+                          for p in model.parameters() if p.grad is not None])
+        return loss.detach().float(), aux["mse"].float(), grad
+
+    runs = []
+    for seed in range(6):
+        draws = objective.draw(bf16, x, torch.Generator().manual_seed(seed))
+        runs.append((loss_and_grad(f32, draws), loss_and_grad(bf16, draws),
+                     draws))
+    _take_the_rule_on_the_cpu(monkeypatch)
+    mse_gap = {"fused": 0.0, "plain": 0.0}
+    for (loss32, mse32, grad32), (loss, mse, grad), draws in runs:
+        tracing.on()
+        try:
+            with tracing.root("train", torch.device("cpu")):
+                got, got_mse, got_grad = loss_and_grad(bf16, draws)
+        finally:
+            tracing.off()
+        counts = [s.counts for s in tracing.collect()
+                  if s.name == "flow.forward"]
+        assert counts[0] == {"stage_fused": 3 * FLOW["num_blocks"]}
+        assert len(counts) > 1 and not any(counts[1:])
+        assert abs(got - loss) <= 2**-5 * abs(loss)
+        mse_gap["fused"] += abs(got_mse - mse32).item() / mse32.item()
+        mse_gap["plain"] += abs(mse - mse32).item() / mse32.item()
+        assert ((got_grad - grad32).norm()
+                <= 1.1 * (grad - grad32).norm())
+    assert mse_gap["fused"] <= 1.1 * mse_gap["plain"]
 
 
 # ---------------------------------------------------------------------------
