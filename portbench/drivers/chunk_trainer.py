@@ -34,8 +34,8 @@ import torch
 
 from portbench import program, traffic_gen
 from portbench.drivers.common import Phases, Sizes, now, sync
-from portbench.reference import imf, weights
-from portbench.reference.model import FP8Ops, Ops
+from portbench.reference import imf
+from portbench.reference.layers import FP8Ops, Ops
 
 WIRE_SCALE = 1.1  # the pool's int16 wire format: full scale at 1.1
 
@@ -82,13 +82,13 @@ class Driver:
     def setup(self) -> None:
         run, s, dev = self.run, self.sizes, self.run.device
         phase = Phases()
-        self.params = weights.draw(s.geo, run.seed, dev)
+        self.params = s.family.draw(s.geo, run.seed, dev)
         bank = traffic_gen.clip_bank(run.seed, run.traffic["bank_clips"],
                                      s.frame_size, s.sample_rate, dev)
         self.host_bank = bank.cpu().numpy()
         phase("weights and bank")
         self.trainer = program.Trainer(program.port_config(s.config), self.params,
-                                       self._source(), run.seed, dev)
+                                       s.family.to_port, self._source(), run.seed, dev)
         phase("train state and pool")
         self.generator = traffic_gen.torch_generator(run.seed, 6, dev)
         self.draw_gen = traffic_gen.torch_generator(run.seed, 7, dev)
@@ -96,7 +96,7 @@ class Driver:
         self.losses = [float(v) for v in series["loss"]]
         self.grad_norms = [float(v) for v in series["grad_norm"]]
         tr = self.trainer
-        self.after = {weights.ref_name(n): p.detach().clone()
+        self.after = {s.family.ref_name(n): p.detach().clone()
                       for n, p in zip(tr.names(), tr.state.params)}
         phase("the checked chunk")
         self._chunk()
@@ -161,20 +161,21 @@ class Driver:
 
     def check(self) -> dict:
         s, ops = self.sizes, Ops()
-        optim = dict(self.sizes.config["base"])
-        ref = imf.train_steps(self.params, self.batches, self.draws, s.geo, s.tok(),
-                              optim, ops)
+        fam, optim = s.family, dict(s.config["base"])
+        ref = imf.train_steps(fam, self.params, self.batches, self.draws, s.geo,
+                              s.tok(), optim, ops)
         got = {"losses": self.losses, "grad_norms": self.grad_norms,
                "params": self.after}
         control = self.run.control
         if control == "fp8":  # the float8 reference in the program's place
-            got = imf.train_steps(self.params, self.batches, self.draws, s.geo,
+            got = imf.train_steps(fam, self.params, self.batches, self.draws, s.geo,
                                   s.tok(), optim, FP8Ops())
         elif control == "half":  # the reference on half of each batch
             half = [b[:len(b) // 2] for b in self.batches]
             rows = self.rows_per_step // 2
             draws = [tuple(d[:rows] for d in draw) for draw in self.draws]
-            got = imf.train_steps(self.params, half, draws, s.geo, s.tok(), optim, ops)
+            got = imf.train_steps(fam, self.params, half, draws, s.geo, s.tok(), optim,
+                                  ops)
         numbers = {"feed_rows_from_bank": 0.0 if self._check_feed() else 1.0,
                    "loss_gap": max(abs(a - b) / abs(b)
                                    for a, b in zip(got["losses"], ref["losses"])),

@@ -20,7 +20,7 @@ import torch
 
 from portbench import program, traffic_gen
 from portbench.drivers.common import Phases, Reservoir, Sizes, now, rel_l2, sync
-from portbench.reference import imf, weights
+from portbench.reference import imf
 
 
 class Driver:
@@ -36,9 +36,9 @@ class Driver:
     def setup(self) -> None:
         run, s, dev = self.run, self.sizes, self.run.device
         phase = Phases()
-        self.params = weights.draw(s.geo, run.seed, dev)
-        self.codec = program.codec(program.port_config(s.config), self.params, dev,
-                                   quantized=run.control == "int8")
+        self.params = s.family.draw(s.geo, run.seed, dev)
+        self.codec = program.codec(program.port_config(s.config), self.params,
+                                   s.family.to_port, dev, quantized=run.control == "int8")
         phase("weights and codec")
         self.bank = traffic_gen.clip_bank(run.seed, self.clips * self.bank_calls,
                                           self.samples, s.sample_rate, dev)
@@ -101,8 +101,8 @@ class Driver:
         worst = 0.0
         for i, out in self.kept.items:
             audio, noise = self._inputs(i)
-            ref = imf.roundtrip(self.params, audio, noise, s.geo, s.window, s.hop,
-                                s.coeff_scale, s.gain_norm)
+            ref = imf.roundtrip(s.family, self.params, audio, noise, s.geo, s.window,
+                                s.hop, s.coeff_scale, s.gain_norm)
             if out.shape != ref.shape:
                 return {"audio_rel_l2": float("inf")}
             worst = max(worst, float(rel_l2(out, ref).max()))

@@ -1,5 +1,5 @@
-"""What the drivers share: the configuration's sizes, the card's clock and
-the comparison of outputs with the reference."""
+"""What the drivers share: the configuration's sizes and model family, the
+card's clock and the comparison of outputs with the reference."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import time
 
 import torch
 
-from portbench.reference.model import Geometry
+from portbench import harness
 
 
 def sync(device: torch.device) -> None:
@@ -33,11 +33,13 @@ class Phases:
 
 
 class Sizes:
-    """The sizes a driver reads from a configuration file."""
+    """The sizes a driver reads from a configuration file, and the reference
+    of its model family (``family``) with that family's ``geo``."""
 
     def __init__(self, config: dict):
         self.config = config["config"]
-        self.geo = Geometry.from_config(self.config)
+        self.family = harness.family(self.config)
+        self.geo = self.family.Geometry.from_config(self.config)
         tok = self.config["dataset"]["tokenization_config"]
         self.window = tok["window_size"]
         self.hop = tok.get("hop_size") or self.window // 2

@@ -29,7 +29,7 @@ import torch
 
 from portbench import program, traffic_gen
 from portbench.drivers.common import Phases, Sizes, now, rel_l2, sync
-from portbench.reference import imf, weights
+from portbench.reference import imf
 
 
 class Driver:
@@ -60,13 +60,14 @@ class Driver:
     def setup(self) -> None:
         run, s, dev = self.run, self.sizes, self.run.device
         phase = Phases()
-        self.params = weights.draw(s.geo, run.seed, dev)
-        self.codec = program.codec(program.port_config(s.config), self.params, dev,
-                                   quantized=run.control == "int8")
+        self.params = s.family.draw(s.geo, run.seed, dev)
+        self.codec = program.codec(program.port_config(s.config), self.params,
+                                   s.family.to_port, dev, quantized=run.control == "int8")
         phase("weights and codec")
         self.bank = 2 * s.frames(run.traffic["max_s"] * s.sample_rate)
         gen = traffic_gen.torch_generator(run.seed, 8, dev)
-        self.latents = torch.randn((self.bank, s.geo.latent_dim), generator=gen, device=dev)
+        self.latents = torch.randn((self.bank, *s.family.latent_shape(s.geo)),
+                                   generator=gen, device=dev)
         self.gains = torch.exp(0.5 * torch.randn((self.bank, 1), generator=gen, device=dev) - 2.0)
         self.noise = torch.randn((self.bank, s.geo.noise_dim), generator=gen, device=dev)
         # every duration the run's windows (one, or two halves traced) hold
@@ -143,8 +144,8 @@ class Driver:
             return {"audio_rel_l2": math.inf}
         for offset, nf, audio in self.outputs.values():
             latents, gains, noise = self._inputs(offset, nf)
-            ref = imf.decode(self.params, latents, gains, noise, s.geo, s.window,
-                             s.hop, s.coeff_scale)
+            ref = imf.decode(s.family, self.params, latents, gains, noise, s.geo,
+                             s.window, s.hop, s.coeff_scale)
             out = audio.to(ref.device)
             if out.shape != ref.shape:
                 return {"audio_rel_l2": math.inf}

@@ -5,12 +5,16 @@ output against the reference, and print the result line.
 Everything a cell needs is looked up from the names in ``BENCHMARK.json``:
 
     portbench/configs/<config>.json     the configuration as it is run
+    portbench/reference/family_<architecture>.py
+                                        the plain reference of the
+                                        configuration's model family
     portbench/traffic/<traffic>.json    the mix; names its driver
     portbench/drivers/<driver>.py       the general driver of that mix
     portbench/limits/<workload>.json    the limits ``correct`` is held to
     portbench/metrics/<metric>.py       one reader per per-layer metric
 
-so a later cell, mix or metric is new files and new entries only.
+so a later cell, configuration, model family, mix or metric is new files
+and new entries only.
 """
 
 from __future__ import annotations
@@ -88,12 +92,31 @@ class Run:
     control: str | None = None
 
 
-def _reader(name: str):
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # dataclasses look their module up by name
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def _reader(name: str):
+    return _load(BENCH_DIR / "metrics" / f"{name}.py", f"portbench_metric_{name}").read
+
+
+_FAMILIES: dict[Path, object] = {}
+
+
+def family(config: dict):
+    """The reference module of a v2 config's model family, by the name of
+    its ``model.architecture``; loaded once per file."""
+    name = config["model"]["architecture"]
+    path = BENCH_DIR / "reference" / f"family_{name}.py"
+    if not path.exists():
+        raise SystemExit(f"no reference of the model family {name!r}: {path} is missing")
+    if path not in _FAMILIES:
+        _FAMILIES[path] = _load(path, f"portbench_family_{name}")
+    return _FAMILIES[path]
 
 
 def per_layer(run: Run, wanted: list[dict]) -> dict:

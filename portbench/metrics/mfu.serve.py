@@ -8,4 +8,5 @@ def read(run):
     w = run.window
     if "calls" not in w:
         return None
-    return readers.mfu_pct(run, work.codec_call_flops(w["sizes"].geo, w["rows"]))
+    s = w["sizes"]
+    return readers.mfu_pct(run, work.codec_call_flops(s.family, s.geo, w["rows"]))

@@ -8,5 +8,5 @@ def read(run):
     w = run.window
     if "steps" not in w:
         return None
-    rows = w["rows"] // w["steps"]
-    return readers.mfu_pct(run, w["steps"] * work.train_step_flops(w["sizes"].geo, rows))
+    s, rows = w["sizes"], w["rows"] // w["steps"]
+    return readers.mfu_pct(run, w["steps"] * work.train_step_flops(s.family, s.geo, rows))

@@ -3,16 +3,15 @@ benchmark that imports ``meanflow_audio_codec_torch``, and only through its
 own entry points (``AudioCodec``, ``TrainState``, ``DeviceReplayPool``,
 ``make_multi_step``, ``create_loss_strategy``, ``adapter_from_config``).
 
-Weights come from the benchmark (``reference.weights.draw``), mapped onto
-the program's parameter names; the model is built on the meta device and
-filled on the card, so set-up draws nothing leaf by leaf on the host.
+Weights come from the benchmark (the model family's ``draw``), mapped onto
+the program's parameter names by the family's ``to_port``, which the caller
+hands in; the model is built on the meta device and filled on the card, so
+set-up draws nothing leaf by leaf on the host.
 """
 
 from __future__ import annotations
 
 import torch
-
-from portbench.reference.weights import to_port
 
 
 def port_config(config: dict):
@@ -21,7 +20,7 @@ def port_config(config: dict):
     return config_from_dict(config)
 
 
-def build_model(config, params: dict, device, quantized: bool = False):
+def build_model(config, params: dict, to_port, device, quantized: bool = False):
     from meanflow_audio_codec_torch.codec import with_quantized_decoder
     from meanflow_audio_codec_torch.models.factories import create_flow_model
 
@@ -34,12 +33,12 @@ def build_model(config, params: dict, device, quantized: bool = False):
     return model
 
 
-def codec(config, params: dict, device, quantized: bool = False):
+def codec(config, params: dict, to_port, device, quantized: bool = False):
     """``AudioCodec`` over the benchmark's weights (its int8 decoder with
     ``quantized``)."""
     from meanflow_audio_codec_torch.codec import AudioCodec, with_quantized_decoder
 
-    model = build_model(config, params, device, quantized)
+    model = build_model(config, params, to_port, device, quantized)
     if quantized:
         config = with_quantized_decoder(config)
     return AudioCodec(model, None, config, device=device)
@@ -50,7 +49,7 @@ class Trainer:
     for this config (``training/trainer.py``), over the benchmark's weights
     and batch source."""
 
-    def __init__(self, config, params: dict, source, seed: int, device):
+    def __init__(self, config, params: dict, to_port, source, seed: int, device):
         from meanflow_audio_codec_torch.data.device_pool import DeviceReplayPool
         from meanflow_audio_codec_torch.ops.tokenize import create_tokenization_strategy
         from meanflow_audio_codec_torch.training.adapter import adapter_from_config
@@ -59,7 +58,7 @@ class Trainer:
         from meanflow_audio_codec_torch.training.trainer import device_pool_clips
 
         self.config = config
-        model = build_model(config, params, device)
+        model = build_model(config, params, to_port, device)
         self.state = TrainState(model, make_optimizer(config),
                                 config.ema_decay or None, device=device)
         self.pool = DeviceReplayPool(source, pool_clips=device_pool_clips(config),

@@ -10,7 +10,6 @@ import json
 import re
 
 import pytest
-import torch
 
 from portbench import harness, program
 from portbench.tests import tiny
@@ -97,68 +96,22 @@ def test_benchmark_json_keeps_the_contracts_form():
     assert len(json.dumps(bench)) < 64 * 1024
 
 
-def _altered(codec_fn, change):
-    """``program.codec`` whose codec's outputs pass through ``change``."""
-
-    def build(*args, **kwargs):
-        codec = codec_fn(*args, **kwargs)
-        roundtrip, decode = codec.roundtrip, codec.decode
-        codec.roundtrip = lambda *a, **k: change(roundtrip(*a, **k))
-        codec.decode = lambda *a, **k: change(decode(*a, **k))
-        return codec
-
-    return build
-
-
-def _one_sample_altered(out):
-    out = out.clone()
-    out[0, 3:5, 0] += 0.5 * out.abs().max()
-    return out
-
-
-def _half_left_out(out):
-    out = out.clone()
-    out[out.shape[0] // 2:] = 0
-    return out if out.shape[0] > 1 else out * 0
-
-
 @pytest.mark.parametrize("workload,change", [
-    ("frontier_v2.roundtrip", _one_sample_altered),
-    ("frontier_v2.roundtrip", _half_left_out),
-    (tiny.REQUESTS_CELL, _one_sample_altered),
+    ("frontier_v2.roundtrip", tiny.one_sample_altered),
+    ("frontier_v2.roundtrip", tiny.half_left_out),
+    (tiny.REQUESTS_CELL, tiny.one_sample_altered),
 ], ids=["roundtrip-altered", "roundtrip-half", "requests-altered"])
 def test_a_broken_codec_is_not_correct(tmp_path, monkeypatch, workload, change):
     root = tiny.tiny_tree(tmp_path)
     bench = tiny.with_requests(root)
-    monkeypatch.setattr(program, "codec", _altered(program.codec, change))
+    monkeypatch.setattr(program, "codec", tiny.altered_codec(program.codec, change))
     result, numbers = tiny.run(monkeypatch, root, workload, bench_json=bench)
     assert result["correct"] is False
     assert numbers["audio_rel_l2"] > 1e-3
 
 
-def _unchanged(chunk):
-    def make(self, k):
-        def run(state, batches, generator=None, **draws):
-            loss = torch.ones(k)
-            return state, {"loss": loss, "grad_norm": loss, "mse": loss,
-                           "update_ok": torch.ones(k, dtype=torch.bool)}
-        return run
-    return make
-
-
-def _half_batch(chunk):
-    def make(self, k):
-        full = chunk(self, k)
-
-        def run(state, batches, generator=None, **draws):
-            half = batches.shape[1] // 2
-            rows = {n: d[:, :d.shape[1] // 2] for n, d in draws.items()}
-            return full(state, batches[:, :half], generator, **rows)
-        return run
-    return make
-
-
-@pytest.mark.parametrize("fault", [_unchanged, _half_batch], ids=["unchanged", "half"])
+@pytest.mark.parametrize("fault", [tiny.unchanged_step, tiny.half_batch_step],
+                         ids=["unchanged", "half"])
 def test_a_broken_train_step_is_not_correct(tmp_path, monkeypatch, fault):
     root = tiny.tiny_tree(tmp_path)
     monkeypatch.setattr(program.Trainer, "chunk", fault(program.Trainer.chunk))

@@ -12,10 +12,10 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from portbench import harness, program, work
+from portbench.reference import family_convnet as conv
 from portbench.reference import imf
 from portbench.reference import mdct as ref_mdct
-from portbench.reference import model as ref_model
-from portbench.reference import weights
+from portbench.reference.layers import FP8Ops
 from portbench.tests import tiny
 
 from meanflow_audio_codec_torch.ops.mdct import imdct, mdct
@@ -44,9 +44,9 @@ def test_mdct_matches_the_program(window, hop, length):
                                         ("frontier_v2", False)])
 def test_roundtrip_and_decode_match_the_program(name, small):
     cfg = _config(name, small)
-    geo = ref_model.Geometry.from_config(cfg)
-    params = weights.draw(geo, 3, "cpu")
-    codec = program.codec(program.port_config(cfg), params, "cpu")
+    geo = conv.Geometry.from_config(cfg)
+    params = conv.draw(geo, 3, "cpu")
+    codec = program.codec(program.port_config(cfg), params, conv.to_port, "cpu")
     tok = cfg["dataset"]["tokenization_config"]
     w, gain = tok["window_size"], tok.get("gain_norm", 0.0)
     length = 40 * w // 2 if small else 3 * w
@@ -55,21 +55,23 @@ def test_roundtrip_and_decode_match_the_program(name, small):
     rows = 2 * ref_mdct.num_frames(length, w, w // 2)
     noise = torch.randn(rows, geo.noise_dim, generator=gen)
     out = codec.roundtrip(audio, noise=noise)
-    ref = imf.roundtrip(params, audio, noise, geo, w, w // 2, tok["coeff_scale"], gain)
+    ref = imf.roundtrip(conv, params, audio, noise, geo, w, w // 2, tok["coeff_scale"],
+                        gain)
     assert out.shape == ref.shape
     assert _rel(out, ref) < 1e-4
     latents = torch.randn(1, rows, geo.latent_dim, generator=gen)
     gains = torch.rand(1, rows, 1, generator=gen) + 0.5
     out = codec.decode(latents, gains=gains, noise=noise)
-    ref = imf.decode(params, latents, gains, noise, geo, w, w // 2, tok["coeff_scale"])
+    ref = imf.decode(conv, params, latents, gains, noise, geo, w, w // 2,
+                     tok["coeff_scale"])
     assert _rel(out, ref) < 1e-4
 
 
 @pytest.mark.parametrize("name,small", [("frontier_v2", True), ("frontier_v2", False)])
 def test_one_train_step_matches_the_program(name, small):
     cfg = _config(name, small)
-    geo = ref_model.Geometry.from_config(cfg)
-    params = weights.draw(geo, 4, "cpu")
+    geo = conv.Geometry.from_config(cfg)
+    params = conv.draw(geo, 4, "cpu")
     tok = cfg["dataset"]["tokenization_config"]
     w = tok["window_size"]
     length = 40 * w // 2 if small else 3 * w
@@ -77,7 +79,8 @@ def test_one_train_step_matches_the_program(name, small):
     cfg["base"]["batch_size"] = 2
     gen = torch.Generator().manual_seed(5)
     clips = [(0.3 * torch.randn(2, length, 2, generator=gen)).numpy() for _ in range(4)]
-    trainer = program.Trainer(program.port_config(cfg), params, iter(clips * 4), 0, "cpu")
+    trainer = program.Trainer(program.port_config(cfg), params, conv.to_port,
+                              iter(clips * 4), 0, "cpu")
     try:
         batch = trainer.pool.sample(1, 2)
         rows = 2 * ref_mdct.num_frames(length, w, w // 2)
@@ -86,14 +89,14 @@ def test_one_train_step_matches_the_program(name, small):
         r = t * torch.rand(1, rows, 1, generator=gen)
         trainer.state, series = trainer.chunk(1)(trainer.state, batch, None,
                                                  noise=noise, t=t, r=r)
-        grad = {weights.ref_name(n): m / 0.1
+        grad = {conv.ref_name(n): m / 0.1
                 for n, m in zip(trainer.names(), trainer.state.mu)}
     finally:
         trainer.close()
     base = dict(cfg["base"])
     scale = dict(window=w, hop=w // 2, coeff_scale=tok["coeff_scale"],
                  gain_norm=tok.get("gain_norm", 0.0))
-    ref = imf.train_steps(params, [batch[0]], [(noise[0], t[0], r[0])],
+    ref = imf.train_steps(conv, params, [batch[0]], [(noise[0], t[0], r[0])],
                           geo, scale, base)
     losses, first = ref["losses"], ref["first_grad"]
     assert abs(float(series["loss"][0]) - losses[0]) < 1e-5
@@ -107,26 +110,27 @@ def test_step_flops_are_the_objectives_mathematics():
     passes, and a whole step counted by flop_counter differs from 3 F_enc +
     5 F_dec only by the tangent's product with the weights' zero tangents
     (one F_dec) that forward-mode AD materialises."""
-    geo = ref_model.Geometry.from_config(_config("frontier_v2", True))
-    enc, dec = work.model_flops_per_row(geo)
+    geo = conv.Geometry.from_config(_config("frontier_v2", True))
+    enc, dec = work.model_flops_per_row(conv, geo)
     assert enc > 0 and dec > 0
     rows = 8
-    p = {n: torch.randn(s, requires_grad=True) for n, s in weights.shapes(geo).items()}
+    p = {n: torch.randn(s, requires_grad=True) for n, s in conv.shapes(geo).items()}
     x = torch.randn(rows, geo.noise_dim)
     t = torch.rand(rows, 1)
     with FlopCounterMode(display=False) as counter:
-        part, _ = imf.imf_loss_sum(p, x, torch.randn_like(x), t, t * 0.5, geo)
+        part, _ = imf.imf_loss_sum(conv, p, x, torch.randn_like(x), t, t * 0.5, geo)
         torch.autograd.grad(part, list(p.values()))
     counted = counter.get_total_flops()
-    assert work.train_step_flops(geo, rows) == pytest.approx(rows * (3 * enc + 5 * dec))
-    assert counted == pytest.approx(work.train_step_flops(geo, rows) + rows * dec, rel=0.02)
+    assert work.train_step_flops(conv, geo, rows) == pytest.approx(rows * (3 * enc + 5 * dec))
+    assert counted == pytest.approx(work.train_step_flops(conv, geo, rows) + rows * dec,
+                                    rel=0.02)
 
 
 def test_frontier_v2_decoder_is_0_94_gflop_a_row():
-    geo = ref_model.Geometry.from_config(_config("frontier_v2", False))
-    enc, dec = work.model_flops_per_row(geo)
+    geo = conv.Geometry.from_config(_config("frontier_v2", False))
+    enc, dec = work.model_flops_per_row(conv, geo)
     assert dec == pytest.approx(0.94175232e9)
-    assert work.codec_call_flops(geo, 10) == pytest.approx(10 * (enc + dec))
+    assert work.codec_call_flops(conv, geo, 10) == pytest.approx(10 * (enc + dec))
 
 
 def test_mdct_bound_never_exceeds_the_dense_product():
@@ -143,21 +147,21 @@ def test_mdct_bound_never_exceeds_the_dense_product():
 def test_weight_map_covers_every_parameter_both_ways():
     for name in ("frontier_v2", "corpus_v2"):
         cfg = _config(name, False)
-        geo = ref_model.Geometry.from_config(cfg)
+        geo = conv.Geometry.from_config(cfg)
         with torch.device("meta"):
             from meanflow_audio_codec_torch.models.factories import create_flow_model
 
             model = create_flow_model(program.port_config(cfg))
         names = list(model.state_dict())
-        assert sorted(weights.ref_name(n) for n in names) == sorted(weights.shapes(geo))
+        assert sorted(conv.ref_name(n) for n in names) == sorted(conv.shapes(geo))
         for n, v in model.state_dict().items():
-            assert tuple(v.shape) == weights.shapes(geo)[weights.ref_name(n)]
+            assert tuple(v.shape) == conv.shapes(geo)[conv.ref_name(n)]
         count = sum(v.numel() for v in model.state_dict().values())
         assert count == {"frontier_v2": 33_813_696, "corpus_v2": 114_472_384}[name]
 
 
 def test_fp8_products_round_their_operands():
-    ops = ref_model.FP8Ops()
+    ops = FP8Ops()
     x = torch.randn(64, 64, generator=torch.Generator().manual_seed(0))
     q = ops.q(x)
     assert 0 < _rel(q, x) < 0.1
@@ -169,11 +173,11 @@ def test_reference_on_the_card_matches_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     cfg = copy.deepcopy(_config("frontier_v2", False))
-    geo = ref_model.Geometry.from_config(cfg)
-    params = weights.draw(geo, 3, "cpu")
+    geo = conv.Geometry.from_config(cfg)
+    params = conv.draw(geo, 3, "cpu")
     x = torch.randn(64, geo.noise_dim)
-    cpu = ref_model.encode(params, x, geo)
+    cpu = conv.encode(params, x, geo)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = ref_model.encode({k: v.cuda() for k, v in params.items()}, x.cuda(), geo)
+    card = conv.encode({k: v.cuda() for k, v in params.items()}, x.cuda(), geo)
     assert _rel(card.cpu(), cpu) < 1e-5

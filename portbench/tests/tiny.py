@@ -81,3 +81,57 @@ def run(monkeypatch, root: Path, workload: str, seed: int = 5, seconds: float = 
     monkeypatch.setattr(harness, "BENCH_DIR", root)
     return harness.execute(bench_json or bench(), workload, seed, seconds, trace,
                            0.0, torch.device("cpu"), "cpu", CPU_PEAKS, control)
+
+
+# faults planted under the timed path: each must make a run not correct
+
+
+def altered_codec(codec_fn, change):
+    """``program.codec`` whose codec's outputs pass through ``change``."""
+
+    def build(*args, **kwargs):
+        codec = codec_fn(*args, **kwargs)
+        roundtrip, decode = codec.roundtrip, codec.decode
+        codec.roundtrip = lambda *a, **k: change(roundtrip(*a, **k))
+        codec.decode = lambda *a, **k: change(decode(*a, **k))
+        return codec
+
+    return build
+
+
+def one_sample_altered(out):
+    """Two samples of the first clip moved by half the peak."""
+    out = out.clone()
+    out[0, 3:5, 0] += 0.5 * out.abs().max()
+    return out
+
+
+def half_left_out(out):
+    """The second half of the clips left out (zeros)."""
+    out = out.clone()
+    out[out.shape[0] // 2:] = 0
+    return out if out.shape[0] > 1 else out * 0
+
+
+def unchanged_step(chunk):
+    """``Trainer.chunk`` whose steps return the state unchanged."""
+    def make(self, k):
+        def run(state, batches, generator=None, **draws):
+            loss = torch.ones(k)
+            return state, {"loss": loss, "grad_norm": loss, "mse": loss,
+                           "update_ok": torch.ones(k, dtype=torch.bool)}
+        return run
+    return make
+
+
+def half_batch_step(chunk):
+    """``Trainer.chunk`` whose steps train on half of each batch."""
+    def make(self, k):
+        full = chunk(self, k)
+
+        def run(state, batches, generator=None, **draws):
+            half = batches.shape[1] // 2
+            rows = {n: d[:, :d.shape[1] // 2] for n, d in draws.items()}
+            return full(state, batches[:, :half], generator, **rows)
+        return run
+    return make

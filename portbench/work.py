@@ -1,8 +1,9 @@
 """The yardstick's arithmetic: the card's peaks, the work a step or a codec
 call needs, and the least time the MDCT kernels could take.
 
-FLOPs of the model are counted once, on the reference's forward pass over
-meta tensors, with ``torch.utils.flop_counter``'s formulas (products and
+FLOPs of the model are counted once per model family and geometry, on the
+family reference's forward passes (its ``encode`` and ``flow``) over meta
+tensors, with ``torch.utils.flop_counter``'s formulas (products and
 convolutions; 2 per multiply-add). A training step needs, per example row:
 
     encoder   forward + backward            3 F_enc
@@ -30,9 +31,6 @@ import math
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench.reference import weights
-from portbench.reference.model import Geometry, encode, flow
-
 #: published dense peaks by the name the card reports (NVIDIA's H100 SXM
 #: data sheet, at its 700 W limit)
 PEAKS = {
@@ -42,29 +40,30 @@ PEAKS = {
 
 
 @functools.lru_cache(maxsize=8)
-def model_flops_per_row(geo: Geometry) -> tuple[float, float]:
+def model_flops_per_row(family, geo) -> tuple[float, float]:
     """(F_enc, F_dec): forward FLOPs of the encoder and of one decoder call
-    for one example row."""
+    for one example row of the model ``family`` at ``geo``."""
     rows = 64
-    p = {n: torch.empty(s, device="meta") for n, s in weights.shapes(geo).items()}
+    p = {n: torch.empty(s, device="meta") for n, s in family.shapes(geo).items()}
     x = torch.empty(rows, geo.noise_dim, device="meta")
+    latents = torch.empty(rows, *family.latent_shape(geo), device="meta")
     counts = []
-    for fn in (lambda: encode(p, x, geo),
-               lambda: flow(p, x, torch.empty(rows, 2, device="meta"),
-                            torch.empty(rows, geo.latent_dim, device="meta"), geo)):
+    for fn in (lambda: family.encode(p, x, geo),
+               lambda: family.flow(p, x, torch.empty(rows, 2, device="meta"), latents,
+                                   geo)):
         with FlopCounterMode(display=False) as counter:
             fn()
         counts.append(counter.get_total_flops() / rows)
     return counts[0], counts[1]
 
 
-def train_step_flops(geo: Geometry, rows: int) -> float:
-    enc, dec = model_flops_per_row(geo)
+def train_step_flops(family, geo, rows: int) -> float:
+    enc, dec = model_flops_per_row(family, geo)
     return rows * (3 * enc + 5 * dec)
 
 
-def codec_call_flops(geo: Geometry, rows: int) -> float:
-    enc, dec = model_flops_per_row(geo)
+def codec_call_flops(family, geo, rows: int) -> float:
+    enc, dec = model_flops_per_row(family, geo)
     return rows * (enc + dec)
 
 
